@@ -1,0 +1,31 @@
+"""Wrapper for the probe-lookup kernel."""
+from __future__ import annotations
+
+from repro_torch.core import batched as BT
+from repro_torch.kernels.probe.probe import probe_lookup_kernel
+
+
+def probe_lookup(ht: BT.HashTable, keys, *, use_kernel: bool = True,
+                 strategy: str = "linear"):
+    """Wait-free batched lookup through the probe kernel.  Returns
+    (found bool[B], slot int32[B]), a drop-in for ``batched.find_batch``.
+
+    The kernel walks the LINEAR probe run, so it serves exactly the
+    strategies whose lookup scan is the linear one (``kernel_supported``);
+    any other strategy raises."""
+    if strategy != "linear":
+        from repro_torch.core.probe_strategies import get_strategy
+        if not get_strategy(strategy).kernel_supported:
+            raise ValueError(f"probe_lookup: strategy {strategy!r} does not "
+                             f"probe in linear order")
+    if use_kernel:
+        return probe_lookup_kernel(ht, keys)
+    return BT.find_batch(ht, keys)
+
+
+def resolved_fraction(ht: BT.HashTable, keys, **kw) -> float:
+    """Fraction of keys the kernel resolves without the oracle.  Always
+    1.0: the CUDA kernel walks a key's run until it decides or has read all
+    m cells, so — unlike the TPU kernel's two-block window — no key is left
+    unresolved and there is no fallback leg."""
+    return 1.0

@@ -1,0 +1,24 @@
+"""``repro_torch.serving.sched`` — proactive admission control and the
+continuous-batching scheduler over the hash-table page allocator (copies of
+the JAX package's numpy-only modules).  ``router`` is not ported: it stacks
+schedulers over the sharded table (ROADMAP item 20)."""
+from repro_torch.serving.sched.forecast import (Forecast, OccupancyForecaster,
+                                                pages_held, pages_needed)
+from repro_torch.serving.sched.policy import (DeadlinePolicy, POLICIES,
+                                              Policy, PriorityPolicy,
+                                              get_policy)
+from repro_torch.serving.sched.request import (DONE, QUEUED, RUNNING,
+                                               Request)
+from repro_torch.serving.sched.scheduler import (Plan, RoundStats,
+                                                 SchedStats, Scheduler)
+from repro_torch.serving.sched.workload import (churn_request,
+                                                churn_workload,
+                                                synthetic_workload)
+
+__all__ = [
+    "DONE", "QUEUED", "RUNNING", "Request",
+    "Forecast", "OccupancyForecaster", "pages_held", "pages_needed",
+    "Policy", "PriorityPolicy", "DeadlinePolicy", "POLICIES", "get_policy",
+    "Plan", "RoundStats", "SchedStats", "Scheduler",
+    "churn_request", "churn_workload", "synthetic_workload",
+]
