@@ -12,8 +12,13 @@ order, each phase printing one JSON line:
                plain PyTorch versions at B in {8, 64}, KH=8, G=6, D=128,
                PS in {16, 256}, up to 4096 tokens per sequence, in bf16
                and int8 with scales, with stale rows, -1 holes and
-               positions on page boundaries; then K1 == the K2 composition
-               (slots view, then K2) bit for bit.
+               positions on page boundaries; at the serve shape with each
+               lane on an edge of the split layout (empty tail splits, a
+               split of holes only, no live token, a position past the
+               table); and over a sweep of head counts (G 1 to 16), head
+               dims (8 to 256) and all six q x pool dtype pairs.  In every
+               case K1 == the K2 composition (slots view, then K2) bit for
+               bit.
 3. probe     — K3 against the plain ``find_batch`` on a 2^20-cell table
                at load 0.9, churned (tombstones, runs that wrap), 2^18
                lookups half present: (found, slot) bit for bit.
@@ -35,16 +40,22 @@ order, each phase printing one JSON line:
 7. kernels   — each kernel's device time at the main path's shapes (the
                serve state with the most live pages; the rebuild's keys),
                from CUDA-graph replay, beside its plain version's, its
-               bound, a library call's and its eager per-call time;
+               bound and bound share, a library call's and its eager
+               per-call time; for K1 and K2 also the split count and the
+               same numbers at the attention phase's long-context case
+               (B=64, PS=16, MP=256, bf16, up to 4096 tokens a sequence);
                then a profile of three serve rounds: the device's busy
                share and the kernels that take its time.
 
 Launch counts are zeroed just before phase 4 and read after phase 5: K1
 must have launched once per layer per token step, K2 never (the engine's
 attention is K1) and K3 once (the rebuild).  The per-round check's
-launches are counted apart (``check_launches``).  Any failure raises and the script exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository around it, it exits non-zero and prints no result.
+launches are counted apart (``check_launches``).  A wrapper counts one
+launch per call, though K1 and K2 each make two CUDA launches (the split
+kernel and the merge).  Any failure raises and the script exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository around it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -226,7 +237,67 @@ def attention_inputs(B, PS, MP, kv_dtype, seed):
             torch.from_numpy(pos.astype(np.int32)).to(dev), scales)
 
 
-def phase_attention(errs):
+def split_edge_inputs(kv_dtype, seed):
+    """The serve shape (B=8, KH=8, G=6, D=128, PS=16, MP=64) with each
+    lane on an edge of the kernel's split layout (S splits of
+    ceil(P/S) live pages each): one token; the last token of the last
+    split; fewer live pages than splits (empty tail splits); a split whose
+    range holds only holes; no live token at all (first entry -1); the
+    full table; a position past the table; random holes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        split_count
+    B, PS, MP = 8, 16, 64
+    q, k, v, _, _, sc = attention_inputs(B, PS, MP, kv_dtype, seed)
+    S = split_count(B, k.shape[2], MP, PS, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    rng = np.random.default_rng(seed)
+    bt = np.arange(B * MP, dtype=np.int32).reshape(B, MP)
+    P2 = min(2 * S, MP)                        # two pages per split
+    pos = np.array([0, P2 * PS - 1, PS + 3, P2 * PS - 5, 5, MP * PS - 1,
+                    MP * PS + 37, min(3 * S, MP) * PS - 9], np.int32)
+    bt[3, 2:4] = -1                            # split 1 of lane 3: holes
+    bt[4, 0] = -1                              # lane 4: no live token
+    bt[7, rng.random(MP) < 0.1] = -1
+    return (q, k, v, torch.from_numpy(bt).to(DEV),
+            torch.from_numpy(pos).to(DEV), sc, S)
+
+
+def sweep_inputs(B, QH, KH, D, NP, PS, MP, q_dtype, kv_dtype, seed):
+    """Small inputs at other head counts, head dims and dtypes, with -1
+    holes, one lane at position 0 and (B > 1) one with no live token."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, QH, D)).astype(
+        np.float32)).to(DEV).to(q_dtype)
+    shape = (NP, PS, KH, D)
+    sc = None
+    if kv_dtype == torch.int8:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(DEV) for _ in range(2))
+        sc = tuple(torch.from_numpy(rng.uniform(0.01, 0.05, shape[:3]).astype(
+            np.float32)).to(DEV).to(torch.bfloat16) for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(DEV).to(kv_dtype) for _ in range(2))
+    pos = rng.integers(0, MP * PS, size=B).astype(np.int32)
+    pos[0] = 0
+    bt = rng.integers(0, NP, size=(B, MP)).astype(np.int32)
+    bt[rng.random((B, MP)) < 0.1] = -1
+    bt[0, 0] = 0
+    if B > 1:
+        pos[1], bt[1, 0] = PS - 1, -1
+    return (q, k, v, torch.from_numpy(bt).to(DEV),
+            torch.from_numpy(pos).to(DEV), sc)
+
+
+def check_attention(q, k, v, bt, pos, sc, errs):
+    """K1 and K1's partials against the plain version, K2 on the slots view
+    against its plain version (over the lanes with a valid token: the
+    plain oracle gives NaN for the others), and K1 == the K2 composition
+    bit for bit.  Returns the errors and the equality."""
     import torch
     from repro_torch.kernels.fused_decode import (block_table_slots_ref,
                                                   fused_decode_kernel,
@@ -234,40 +305,65 @@ def phase_attention(errs):
                                                   fused_decode_ref)
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_ref)
+    PS = k.shape[1]
+    o1 = fused_decode_kernel(q, k, v, bt, pos, scales=sc)
+    e1 = close(o1, fused_decode_plain(q, k, v, bt, pos, scales=sc), BF16_TOL)
+    part = fused_decode_kernel(q, k, v, bt, pos, scales=sc, partials=True)
+    ref = fused_decode_plain(q, k, v, bt, pos, scales=sc, partials=True)
+    ep = max(close(a, b, PARTIALS_TOL) for a, b in zip(part, ref))
+    slots = block_table_slots_ref(bt, pos, page_size=PS)
+    lens = (pos + 1).to(torch.int32)
+    o2 = paged_attention_kernel(q, k, v, slots, lens, scales=sc)
+    ok = (slots >= 0).any(dim=1)
+    e2 = close(o2[ok], paged_attention_ref(q, k, v, slots, lens,
+                                           scales=sc)[ok], BF16_TOL)
+    same = torch.equal(o1, fused_decode_ref(q, k, v, bt, pos, scales=sc))
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"K1 != K2 composition at q {tuple(q.shape)} "
+                             f"{q.dtype}, pools {tuple(k.shape)} {k.dtype}")
+    errs["K1"] = max(errs["K1"], e1, ep)
+    errs["K2"] = max(errs["K2"], e2)
+    return {"k1_err": e1, "k1_partials_err": ep, "k2_err": e2,
+            "k1_eq_k2": same}
+
+
+# (B, QH, KH, D, NP, PS, MP): MHA, GQA, MQA, 16 query heads a kv head (two
+# head groups), head dims 8, 16, 64, 96 (lanes past D masked) and 256
+SWEEP = [(3, 4, 4, 32, 64, 8, 6), (2, 8, 2, 32, 16, 8, 4),
+         (3, 4, 1, 16, 32, 4, 8), (1, 4, 2, 64, 8, 16, 2),
+         (4, 32, 2, 128, 256, 16, 32), (2, 12, 1, 256, 128, 16, 16),
+         (4, 16, 2, 8, 64, 4, 8), (2, 6, 3, 96, 64, 32, 8)]
+
+
+def phase_attention(errs):
+    import torch
     cases = []
     for B in (8, 64):
         for PS, MP in ((16, 64), (16, 256), (256, 16)):
             for kv in (torch.bfloat16, torch.int8):
                 q, k, v, bt, pos, sc = attention_inputs(
                     B, PS, MP, kv, seed=len(cases))
-                o1 = fused_decode_kernel(q, k, v, bt, pos, scales=sc)
-                e1 = close(o1, fused_decode_plain(q, k, v, bt, pos,
-                                                  scales=sc), BF16_TOL)
-                part = fused_decode_kernel(q, k, v, bt, pos, scales=sc,
-                                           partials=True)
-                ref = fused_decode_plain(q, k, v, bt, pos, scales=sc,
-                                         partials=True)
-                ep = max(close(a, b, PARTIALS_TOL)
-                         for a, b in zip(part, ref))
-                slots = block_table_slots_ref(bt, pos, page_size=PS)
-                lens = (pos + 1).to(torch.int32)
-                o2 = paged_attention_kernel(q, k, v, slots, lens, scales=sc)
-                e2 = close(o2, paged_attention_ref(q, k, v, slots, lens,
-                                                   scales=sc), BF16_TOL)
-                same = torch.equal(o1, fused_decode_ref(q, k, v, bt, pos,
-                                                        scales=sc))
-                torch.cuda.synchronize()
-                if not same:
-                    raise AssertionError(f"K1 != K2 composition at B={B} "
-                                         f"PS={PS} MP={MP} {kv}")
-                errs["K1"] = max(errs["K1"], e1, ep)
-                errs["K2"] = max(errs["K2"], e2)
                 cases.append({"B": B, "PS": PS, "MP": MP,
                               "kv": str(kv).replace("torch.", ""),
-                              "k1_err": e1, "k1_partials_err": ep,
-                              "k2_err": e2, "k1_eq_k2": same})
+                              **check_attention(q, k, v, bt, pos, sc,
+                                                errs)})
+    for kv in (torch.bfloat16, torch.int8):
+        q, k, v, bt, pos, sc, S = split_edge_inputs(kv, seed=100)
+        cases.append({"B": 8, "PS": 16, "MP": 64, "split_edges": True,
+                      "splits": S, "kv": str(kv).replace("torch.", ""),
+                      **check_attention(q, k, v, bt, pos, sc, errs)})
+    sweep = []
+    for shape in SWEEP:
+        for qd in (torch.float32, torch.bfloat16):
+            for kv in (torch.float32, torch.bfloat16, torch.int8):
+                args = sweep_inputs(*shape, qd, kv, seed=sum(shape))
+                r = check_attention(*args, errs)
+                sweep.append(max(r["k1_err"], r["k1_partials_err"],
+                                 r["k2_err"]))
     emit("attention", tolerance={"bf16": BF16_TOL, "partials": PARTIALS_TOL},
-         cases=cases)
+         cases=cases, sweep={"shapes": SWEEP, "dtype_pairs": 6,
+                             "max_err": max(sweep), "k1_eq_k2": True})
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +687,65 @@ def sdpa_ms(q, pk, pv, bt, pos, PS):
         q4, k, v, attn_mask=mask), 100)
 
 
+def attention_bounds(q, pk, bt, pos):
+    """K1's and K2's least times in ms, each with what bounds it: the
+    valid tokens' K and V read once, the table rows, q, the outputs
+    (K1's f32 partials; K2's output in q's dtype); operations: q.k and
+    p.v per valid token and query head, in f32."""
+    import torch
+    B, MP = bt.shape
+    _, PS, KH, D = pk.shape
+    G = q.shape[1] // KH
+    live = (torch.arange(MP, device=DEV)[None, :] * PS
+            <= pos[:, None]) & (bt >= 0)
+    ntok = int((torch.clamp(pos[:, None] + 1 - torch.arange(
+        MP, device=DEV)[None, :] * PS, 0, PS) * live).sum())
+    kv_bytes = ntok * KH * D * 2 * pk.element_size()
+    flops = 4 * ntok * KH * G * D
+    k1_bytes = (kv_bytes + B * MP * 4 + B * 4 + q.numel() * q.element_size()
+                + 4 * (B * KH * G * D + 2 * B * KH * G))
+    k2_bytes = (kv_bytes + B * MP * 4 + B * 4
+                + 2 * q.numel() * q.element_size())
+
+    def bound(nbytes):
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+    return bound(k1_bytes), bound(k2_bytes)
+
+
+def long_context():
+    """K1 and K2 at the attention phase's long-context case (B=64, PS=16,
+    MP=256, bf16, up to 4096 tokens per sequence: hundreds of MB of KV,
+    far past the 50 MB L2): device ms, bound, bound share, the SDPA
+    yardstick over the same KV and the split count."""
+    import torch
+    from repro_torch.kernels.fused_decode import (block_table_slots_ref,
+                                                  fused_decode_kernel)
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        split_count
+    B, PS, MP = 64, 16, 256
+    q, pk, pv, bt, pos, _ = attention_inputs(B, PS, MP, torch.bfloat16,
+                                             seed=8)
+    slots = block_table_slots_ref(bt, pos, page_size=PS)
+    lens = (pos + 1).to(torch.int32)
+    (b1, by1), (b2, by2) = attention_bounds(q, pk, bt, pos)
+    lib = sdpa_ms(q, pk, pv, bt, pos, PS)
+    S = split_count(B, pk.shape[2], MP, PS, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    k1 = graph_ms(lambda: fused_decode_kernel(q, pk, pv, bt, pos,
+                                              partials=True), 20)
+    k2 = graph_ms(lambda: paged_attention_kernel(q, pk, pv, slots, lens), 20)
+    shape = {"B": B, "PS": PS, "MP": MP, "kv": "bfloat16",
+             "max_tokens": int(pos.max()) + 1, "splits": S,
+             "library_ms": lib}
+    return {"K1": {**shape, "ms": k1, "bound_ms": b1, "bound_by": by1,
+                   "bound_share": b1 / k1},
+            "K2": {**shape, "ms": k2, "bound_ms": b2, "bound_by": by2,
+                   "bound_share": b2 / k2}}
+
+
 def kernel_entries(snap, rebuilt, errs, launches, checks):
     import torch
     from repro_torch.core import batched as BT
@@ -599,6 +754,8 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
                                                   fused_decode_plain)
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        split_count
     from repro_torch.kernels.probe import probe_lookup_kernel
     from repro_torch.serving.page_table import page_key
     pk, pv = snap["pools"].k[0], snap["pools"].v[0]
@@ -619,26 +776,15 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
         paged_attention_kernel(q, pk, pv, slots, lens),
         paged_attention_ref(q, pk, pv, slots, lens), BF16_TOL))
 
-    # least bytes: the valid tokens' K and V once, the table rows, q, the
-    # outputs; operations: q.k and p.v per valid token, in f32
-    live = (torch.arange(MP, device=DEV)[None, :] * PS
-            <= pos[:, None]) & (bt >= 0)
-    ntok = int((torch.clamp(pos[:, None] + 1 - torch.arange(
-        MP, device=DEV)[None, :] * PS, 0, PS) * live).sum())
-    kv_bytes = ntok * KH * D * 2 * pk.element_size()
-    flops = 4 * ntok * KH * G * D
-    k1_bytes = (kv_bytes + B * MP * 4 + B * 4 + q.numel() * q.element_size()
-                + 4 * (B * KH * G * D + 2 * B * KH * G))
-    k2_bytes = (kv_bytes + B * MP * 4 + B * 4
-                + 2 * q.numel() * q.element_size())
+    (k1_bound, k1_by), (k2_bound, k2_by) = attention_bounds(q, pk, bt, pos)
     lib = sdpa_ms(q, pk, pv, bt, pos, PS)
-
-    def bound(nbytes):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
-
-    k1_bound, k1_by = bound(k1_bytes)
-    k2_bound, k2_by = bound(k2_bytes)
+    S = split_count(B, KH, MP, PS, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    k1_ms = graph_ms(lambda: fused_decode_kernel(q, pk, pv, bt, pos,
+                                                 partials=True), 100)
+    k2_ms = graph_ms(lambda: paged_attention_kernel(q, pk, pv, slots, lens),
+                     100)
+    longc = long_context()
     table = rebuilt["table"]
     logical = torch.arange(MP, device=DEV)
     keys = page_key(rebuilt["seq_ids"][:, None].long(),
@@ -655,8 +801,8 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
          "replaces": "src/repro/kernels/fused_decode/fused.py:52",
          "launches": launches["K1"], "check_launches": checks["K1"],
          "max_abs_err": errs["K1"],
-         "ms": graph_ms(lambda: fused_decode_kernel(q, pk, pv, bt, pos,
-                                                    partials=True), 100),
+         "ms": k1_ms, "splits": S, "bound_share": k1_bound / k1_ms,
+         "long_context": longc["K1"],
          "plain_ms": graph_ms(lambda: fused_decode_plain(
              q, pk, pv, bt, pos, partials=True), 10),
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": lib,
@@ -668,8 +814,8 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
                      ":29",
          "launches": launches["K2"], "check_launches": checks["K2"],
          "max_abs_err": errs["K2"],
-         "ms": graph_ms(lambda: paged_attention_kernel(q, pk, pv, slots,
-                                                       lens), 100),
+         "ms": k2_ms, "splits": S, "bound_share": k2_bound / k2_ms,
+         "long_context": longc["K2"],
          "plain_ms": graph_ms(lambda: paged_attention_ref(q, pk, pv, slots,
                                                           lens), 10),
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": lib,

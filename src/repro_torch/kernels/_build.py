@@ -38,15 +38,11 @@ _LOCK = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, k_scales, v_scales, block_table, positions,
-    # B, KH, G, D, MP, NP, PS, scale, q_dtype, kv_dtype, partials,
-    # out, o_part, m_part, l_part, stream
-    "fused_decode_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
-                           + [_P] * 5,
-    # q, k, v, k_scales, v_scales, page_ids, lens,
-    # B, KH, G, D, MP, NP, PS, scale, q_dtype, kv_dtype, out, stream
-    "paged_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2
-                              + [_P] * 2,
+    # q, k, v, k_scales, v_scales, rows, ctl, n_offset,
+    # B, KH, G, D, MP, NP, PS, S, scale, q_dtype, kv_dtype, partials,
+    # scratch, out, o_part, m_part, l_part, stream
+    "decode_attention_launch": [_P] * 7 + [_I] * 9 + [_F] + [_I] * 3
+                               + [_P] * 6,
     # table, m, keys, hv, n, found, slot, stream
     "probe_lookup_launch": [_P, _I, _P, _P, _I, _P, _P, _P],
 }

@@ -64,6 +64,23 @@ def fused_decode_plain(q, k_pages, v_pages, block_table, positions, *,
     return (o * norm[..., None]).reshape(B, QH, D).to(q.dtype)
 
 
+def merge_split_partials(o_s, m_s, l_s):
+    """The merge of the CUDA kernel's split partials, in plain PyTorch:
+    o_s [S,B,KH,G,D], m_s and l_s [S,B,KH,G] (split s over its own range
+    of live pages, ``m = -1e30, l = 0, o = 0`` where it has none) ->
+    the f32 (o, m, l) of all splits, summed in the order s = 0..S-1:
+    ``m = max m_s``, ``w_s = exp(m_s - m)``, ``l = sum w_s l_s``,
+    ``o = sum w_s o_s``."""
+    m = m_s.amax(dim=0)
+    o = torch.zeros_like(o_s[0])
+    l = torch.zeros_like(l_s[0])
+    for s in range(o_s.shape[0]):
+        w = torch.exp(m_s[s] - m)
+        o = o + w[..., None] * o_s[s]
+        l = l + w * l_s[s]
+    return o, m, l
+
+
 def fused_decode_ref(q, k_pages, v_pages, block_table, positions, *,
                      scales=None):
     """Separate slot-view and attention dispatches over the same raw inputs

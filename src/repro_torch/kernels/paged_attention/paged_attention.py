@@ -1,19 +1,26 @@
-"""Paged-attention decode kernel K2: the CUDA kernel's wrapper.
+"""Paged-attention decode kernel K2: the CUDA kernel's wrapper, and the
+launch shared with K1.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention/
 paged_attention.py`` ``_pa_kernel``.  The kernel is
-``repro_torch/csrc/paged_decode.cu`` ``paged_attention_kernel``; its
-source note gives the bound (bytes: every fetched page's K/V over the
-card's memory rate) and the design (one CTA per (sequence, kv head), the
-page loop inside the block, 32-token chunks, one page-step function shared
-with K1).
+``repro_torch/csrc/paged_decode.cu`` (``decode_attention_launch``); its
+source note gives the bound (bytes: the valid tokens' K/V over the card's
+memory rate) and the design: flash decoding, with the live pages of each
+(sequence, kv head) split across ``S`` CTAs (``split_count``), each walking
+its range in token tiles through a ``cp.async`` ring, then a second kernel
+merging the ``S`` partials in a fixed order.  K1 runs the same kernel body;
+only the per-sequence control value differs (positions for K1, lengths
+here), so K1 equals the slots-view-then-K2 composition bit for bit.
 
 For CPU tensors the wrapper runs the plain version
 (``ref.paged_attention_ref``).  For CUDA tensors it launches the kernel or
 raises; nothing falls back.  ``paged_attention_kernel.launches`` counts
-launches.
+wrapper calls that launched: one per call, though each call makes two CUDA
+launches (split and merge).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,6 +29,12 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 Q_DTYPES = (torch.float32, torch.bfloat16)
 KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+# the kernel keeps ceil(D/32) dims of q and of the output per lane in
+# registers, for up to 8 query heads at once
+MAX_HEAD_DIM = 256
+# split layout: token slots a split covers at most, and the most splits
+SPLIT_TOKENS = 512
+MAX_SPLITS = 16
 
 
 def check_decode_inputs(name, q, k_pages, v_pages, rows, lens, scales):
@@ -46,6 +59,8 @@ def check_decode_inputs(name, q, k_pages, v_pages, rows, lens, scales):
         raise ValueError(f"{name}: inconsistent shapes q {tuple(q.shape)} "
                          f"pools {tuple(k_pages.shape)} rows "
                          f"{tuple(rows.shape)} lens {tuple(lens.shape)}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} > {MAX_HEAD_DIM}")
     if q.dtype not in Q_DTYPES:
         raise ValueError(f"{name}: q dtype {q.dtype} not in {Q_DTYPES}")
     if k_pages.dtype not in KV_DTYPES or v_pages.dtype != k_pages.dtype:
@@ -60,6 +75,53 @@ def check_decode_inputs(name, q, k_pages, v_pages, rows, lens, scales):
                 raise ValueError(f"{name}: scales must be bf16 [NP,PS,KH]")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_count(B: int, KH: int, MP: int, PS: int, sms: int) -> int:
+    """Splits per (sequence, kv head), from static shapes only: enough CTAs
+    for two per SM, and at most ``SPLIT_TOKENS`` token slots of the
+    block-table row per split (so one long sequence does not hold the
+    card alone), within [1, min(MP, MAX_SPLITS)]."""
+    want = max(-(-2 * sms // max(B * KH, 1)), -(-MP * PS // SPLIT_TOKENS))
+    return max(1, min(want, MP, MAX_SPLITS))
+
+
+def launch_decode(name, q, k_pages, v_pages, rows, ctl, scales, *,
+                  from_positions: bool, partials: bool):
+    """Launch the split decode kernel and its merge on q's stream.  ``rows``
+    int32[B,MP] page rows; ``ctl`` int32[B], the positions (K1,
+    ``from_positions=True``: attends ``ctl+1`` tokens) or the lengths (K2).
+    Returns [B,QH,D] in q's dtype, or the f32 (o, m, l) partials."""
+    lib = _build.library()
+    B, QH, D = q.shape
+    NP, PS, KH, _ = k_pages.shape
+    G, MP = QH // KH, rows.shape[1]
+    S = split_count(B, KH, MP, PS, _sm_count(q.device.index))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scratch = torch.empty((S * B * KH * G * (D + 2),), **f32)
+    if partials:
+        out = None
+        o = torch.empty((B, KH, G, D), **f32)
+        m = torch.empty((B, KH, G), **f32)
+        l = torch.empty((B, KH, G), **f32)
+    else:
+        out = torch.empty_like(q)
+        o = m = l = None
+    ks, vs = scales if scales is not None else (None, None)
+    rc = lib.decode_attention_launch(
+        _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
+        _build.ptr(ks), _build.ptr(vs), _build.ptr(rows), _build.ptr(ctl),
+        int(from_positions), B, KH, G, D, MP, NP, PS, S, float(D ** -0.5),
+        _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pages.dtype],
+        int(partials), _build.ptr(scratch), _build.ptr(out), _build.ptr(o),
+        _build.ptr(m), _build.ptr(l), _build.stream(q.device))
+    _build.check(rc, name)
+    return (o, m, l) if partials else out
+
+
 def paged_attention_kernel(q, k_pages, v_pages, page_ids, lens, *,
                            scales=None):
     """q [B,QH,D]; pools [NP,PS,KH,D]; page_ids int32[B,MP]; lens int32[B];
@@ -70,19 +132,9 @@ def paged_attention_kernel(q, k_pages, v_pages, page_ids, lens, *,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_ids, lens,
                                    scales=scales)
-    B, QH, D = q.shape
-    NP, PS, KH, _ = k_pages.shape
-    out = torch.empty_like(q)
-    ks, vs = scales if scales is not None else (None, None)
-    lib = _build.library()
-    rc = lib.paged_attention_launch(
-        _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-        _build.ptr(ks), _build.ptr(vs), _build.ptr(page_ids),
-        _build.ptr(lens), B, KH, QH // KH, D, page_ids.shape[1], NP, PS,
-        float(D ** -0.5), _build.DTYPE_CODE[q.dtype],
-        _build.DTYPE_CODE[k_pages.dtype], _build.ptr(out),
-        _build.stream(q.device))
-    _build.check(rc, "paged_attention_kernel")
+    out = launch_decode("paged_attention_kernel", q, k_pages, v_pages,
+                        page_ids, lens, scales, from_positions=False,
+                        partials=False)
     paged_attention_kernel.launches += 1
     return out
 

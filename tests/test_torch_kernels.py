@@ -319,7 +319,8 @@ def test_wrappers_raise_without_a_kernel_and_on_bad_input():
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card():
     """On a CUDA device: K1 and K2 within tolerance of their plain
-    versions, K1 == the K2 composition bit for bit, K3 == find_batch."""
+    versions, K1 == the K2 composition bit for bit (also on the edges of
+    the split layout), K3 == find_batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     from repro_torch.kernels.fused_decode import (fused_decode_plain,
@@ -333,6 +334,20 @@ def test_kernels_match_plain_versions_on_the_card():
                                f32(fused_decode_plain(*args).cpu()),
                                rtol=1e-2, atol=1e-2)
     assert torch.equal(out, fused_decode_ref(*args))
+    # split edges: one token; no live token; a split of holes only (at
+    # the serve shape's split count, 5 on 132 SMs: two pages a split)
+    q, k, v, bt, pos = decode_inputs(8, 48, 8, 128, 600, 16, 64, seed=2,
+                                     holes=True)
+    pos[:3] = 0, 15, 10 * 16 - 1
+    bt[1, 0] = -1
+    bt[2, 2:4] = -1
+    args = [to_t(x).cuda() for x in (q, k, v, bt, pos)]
+    args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+    for a, b in zip(fused_decode_kernel(*args, partials=True),
+                    fused_decode_plain(*args, partials=True)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3)
+    assert torch.equal(fused_decode_kernel(*args), fused_decode_ref(*args))
     _, port, keys = _table(4096, 3600, 7, 0, delete_every=5)
     port = TBT.HashTable(*(t.cuda() for t in port))
     qk = torch.from_numpy(keys.astype(np.int64)).cuda()
