@@ -19,9 +19,16 @@ order, each phase printing one JSON line:
                dims (8 to 256) and all six q x pool dtype pairs.  In every
                case K1 == the K2 composition (slots view, then K2) bit for
                bit.
-3. probe     — K3 against the plain ``find_batch`` on a 2^20-cell table
-               at load 0.9, churned (tombstones, runs that wrap), 2^18
-               lookups half present: (found, slot) bit for bit.
+3. probe     — K3 against the plain ``find_batch``, (found, slot) bit for
+               bit at its lane count L: on edge tables
+               (m in {1, 3, 5, 192, 384}, full tables and tombstones;
+               m = 200000, the general hash branch above 2^16; m = 2^12
+               with one run longer than 32 x 32 cells; seeds other than
+               0; int64 keys >= 2^32 and negative keys), then on a
+               2^20-cell table at load 0.9, churned (tombstones, runs that
+               wrap), 2^18 lookups half present, timed warm (CUDA-graph
+               replay) and cold (L2 flushed before each call) beside the
+               byte bound of ``probe.lookup_bytes``.
 4. serve     — the main path: ``ContinuousBatcher`` serving qwen2.5-32b at
                full width with the depth cut from 64 to 8 layers (the 64
                layers' bf16 weights, about 65.5 GB, would leave too little
@@ -44,6 +51,9 @@ order, each phase printing one JSON line:
                per-call time; for K1 and K2 also the split count and the
                same numbers at the attention phase's long-context case
                (B=64, PS=16, MP=256, bf16, up to 4096 tokens a sequence);
+               for K3 its lane count, the device ops one call launches
+               (counted under ``torch.profiler``: 1 for int64 keys), cold
+               times and the probe phase's numbers;
                then a profile of three serve rounds: the device's busy
                share and the kernels that take its time.
 
@@ -177,6 +187,54 @@ def graph_ms(fn, n: int, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (n * reps)
+
+
+def cold_ms(fn, n: int, flush_mb: int = 256) -> float:
+    """Device milliseconds per call of ``fn`` with L2 cold: a
+    ``flush_mb`` MB buffer (over 2.5x the 50 MB L2) is written before each
+    call, and each call, captured in a CUDA graph, is timed with its own
+    CUDA events; the mean over ``n`` calls."""
+    import torch
+    flush = torch.empty(flush_mb << 20, dtype=torch.uint8, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        flush.fill_(1)
+        start.record()
+        g.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / n
+
+
+def device_ops(fn, calls: int = 4):
+    """Device operations (kernels, copies, fills) that one call of ``fn``
+    launches, counted under ``torch.profiler`` over ``calls`` calls, and
+    their names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    count, names = 0, []
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            count += e.count
+            names.append(e.key[:80])
+    return count / calls, sorted(names)
 
 
 def close(a, b, tol: float) -> float:
@@ -367,38 +425,90 @@ def phase_attention(errs):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the probe kernel on a large churned table.
+# Phase 3: the probe kernel on edge tables and a large churned table.
 
-def cells_needed(table, hv, slot, found):
-    """Cells each lookup must read: up to its hit, else up to the first
-    EMPTY (numpy, on the host)."""
-    import numpy as np
-    from repro_torch.core import encoding as E
-    tab = table.cpu().numpy()
-    m = tab.shape[0]
-    h = hv.cpu().numpy().astype(np.int64)
-    empties = np.nonzero(tab == E.EMPTY)[0]
-    if empties.size:
-        i = np.searchsorted(empties, h) % empties.size
-        to_empty = (empties[i] - h) % m + 1
-    else:
-        to_empty = np.full(h.shape, m)
-    to_hit = (slot.cpu().numpy().astype(np.int64) - h) % m + 1
-    return np.where(found.cpu().numpy(), to_hit, to_empty)
+def check_probe(ht, queries, errs) -> dict:
+    """K3 == ``find_batch`` bit for bit."""
+    import torch
+    from repro_torch.core import batched as BT
+    from repro_torch.kernels.probe import probe_lookup_kernel
+    fp, sp = BT.find_batch(ht, queries)
+    fk, sk = probe_lookup_kernel(ht, queries)
+    torch.cuda.synchronize()
+    if not (fk.dtype == torch.bool and torch.equal(fk, fp)
+            and torch.equal(sk, sp)):
+        raise AssertionError(f"probe kernel != find_batch on m={BT.size(ht)}")
+    errs["K3"] = max(errs["K3"], float((sk - sp).abs().max()))
+    return {"m": BT.size(ht), "seed": int(ht.seed),
+            "live": int(ht.num_keys), "tombstones": int(ht.num_tombs),
+            "lookups": int(queries.shape[0]), "found": int(fp.sum())}
 
 
-def phase_probe(errs):
-    import numpy as np
+def probe_edge_cases(rng, errs) -> list:
+    """Small and odd tables, the general hash branch above 2^16, a run
+    longer than 32 x 32 cells, and keys read by their low 32 bits."""
     import torch
     from repro_torch.core import batched as BT
     from repro_torch.core import encoding as E
-    from repro_torch.kernels.probe import probe_lookup_kernel
+
+    def table(m, seed, keys, delete_every=0):
+        ht = BT.create(m, seed=seed, device=DEV)
+        ht, ret = BT.insert_batch(ht, keys)
+        if bool((ret == 2).any()):
+            raise AssertionError(f"insert ABORTed on the m={m} edge table")
+        if delete_every:
+            ht, _ = BT.delete_batch(ht, keys[::delete_every])
+        return ht
+
+    def keys(n):
+        return torch.from_numpy(rng.choice(1 << 27, size=n,
+                                           replace=False)).to(DEV)
+
+    cases = []
+    for m, seed, n_live, delete_every in ((1, 3, 1, 0), (3, 0, 3, 0),
+                                          (5, 9, 4, 2), (192, 1, 172, 4),
+                                          (384, 0, 345, 5),
+                                          (200000, 21, 4096, 7)):
+        drawn = keys(n_live + 64)
+        live, absent = drawn[:n_live], drawn[n_live:]
+        ht = table(m, seed, live, delete_every)
+        high = live + (torch.arange(live.shape[0], device=DEV) % 7 + 1
+                       ) * (1 << 32)              # keys >= 2^32
+        queries = torch.cat([live, absent, high, live - (1 << 32),
+                             -absent])            # negative keys
+        cases.append({**check_probe(ht, queries, errs),
+                      "keys_ge_2p32": True, "negative_keys": True})
+    # m = 2^12: 1100 keys homed in the first 64 buckets make one run of
+    # more than 32 x 32 cells
+    m = 1 << 12
+    ht = BT.create(m, seed=5, device=DEV)
+    cand = keys(1 << 18)
+    band = cand[BT._hash(ht, cand) < 64]
+    if band.shape[0] < 1228:
+        raise AssertionError("too few keys homed in the band")
+    ht = table(m, 5, band[:1100], delete_every=9)
+    empty = torch.nonzero(ht.table == E.EMPTY).flatten()
+    run = int(torch.diff(empty, append=empty[:1] + m).max()) - 1
+    if run <= 32 * 32:
+        raise AssertionError(f"the long run has {run} cells")
+    cases.append({**check_probe(ht, torch.cat([band[:1100], band[1100:1228]]),
+                                errs), "run_cells": run})
+    return cases
+
+
+def churned_table(rng):
+    """The probe phase's state: a 2^20-cell table filled to load 0.9
+    through ``insert_batch``, a tenth deleted and refilled (tombstones),
+    with keys homed in the last 256 cells inserted first so a run wraps
+    past 0; and 2^18 queries, half present, 1024 of them deleted keys.
+    Returns (table, queries, fill seconds)."""
+    import torch
+    from repro_torch.core import batched as BT
+    from repro_torch.core import encoding as E
     m, load, chunk = 1 << 20, 0.9, 4096
-    rng = np.random.default_rng(SEED + 3)
     universe = torch.from_numpy(
         rng.choice(1 << 27, size=int(1.2 * m), replace=False)).to(DEV)
     ht = BT.create(m, seed=SEED + 7, device=DEV)
-    # keys homed in the last 256 cells go in first: their run wraps past 0
     tail = BT._hash(ht, universe) >= m - 256
     universe = torch.cat([universe[tail], universe[~tail]])
     n_live = int(load * m)
@@ -415,8 +525,8 @@ def phase_probe(errs):
                 raise AssertionError("insert ABORTed while filling")
     fill_s = time.perf_counter() - t0
     tab = ht.table
-    wraps = bool(tab[0] != E.EMPTY) and bool(tab[-1] != E.EMPTY)
-    if not wraps or int(ht.num_tombs) == 0:
+    if not (bool(tab[0] != E.EMPTY) and bool(tab[-1] != E.EMPTY)) \
+            or int(ht.num_tombs) == 0:
         raise AssertionError("the churned table has no wrapping run or no "
                              "tombstone")
     n = 1 << 18
@@ -424,20 +534,37 @@ def phase_probe(errs):
     present = present[torch.from_numpy(
         rng.permutation(present.shape[0])[:n // 2]).to(DEV)]
     queries = torch.cat([present, absent[:n // 2 - 1024], gone[:1024]])
-    fk, sk = probe_lookup_kernel(ht, queries)
+    return ht, queries, fill_s
+
+
+def phase_probe(errs) -> dict:
+    """Returns K3's numbers at the probe phase's shape for the kernels
+    line."""
+    import numpy as np
+    from repro_torch.core import batched as BT
+    from repro_torch.kernels.probe import probe_lookup_kernel
+    from repro_torch.kernels.probe.probe import LANES, lookup_bytes, run_cells
+    rng = np.random.default_rng(SEED + 3)
+    edges = probe_edge_cases(rng, errs)
+    ht, queries, fill_s = churned_table(rng)
+    check_probe(ht, queries, errs)
     fp, sp = BT.find_batch(ht, queries)
-    torch.cuda.synchronize()
-    if not (torch.equal(fk, fp) and torch.equal(sk, sp)):
-        raise AssertionError("probe kernel != find_batch")
-    errs["K3"] = max(errs["K3"], float((sk - sp).abs().max()))
-    cells = cells_needed(tab, BT._hash(ht, queries), sp, fp)
+    hv = BT._hash(ht, queries)
+    cells = run_cells(ht.table, hv, sp, fp)
     ms = graph_ms(lambda: probe_lookup_kernel(ht, queries), 10)
+    cold = cold_ms(lambda: probe_lookup_kernel(ht, queries), 20)
     plain = cuda_ms(lambda: BT.find_batch(ht, queries), 2)
-    bound = (4 * cells.sum() + 12 * n) / HBM_BYTES_PER_S * 1e3
-    emit("probe", m=m, live=int(ht.num_keys), tombstones=int(ht.num_tombs),
-         wrap_run=wraps, lookups=n, found=int(fp.sum()),
-         equal=True, fill_s=fill_s, cells_mean=float(cells.mean()),
-         cells_max=int(cells.max()), ms=ms, plain_ms=plain, bound_ms=bound)
+    nbytes = lookup_bytes(ht.table, hv, sp, fp)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"m": BT.size(ht), "lookups": int(queries.shape[0]),
+           "L": LANES, "ms": ms, "cold_ms": cold, "plain_ms": plain,
+           "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+           "bound_share": bound / ms, "cold_bound_share": bound / cold}
+    emit("probe", edge_cases=edges, live=int(ht.num_keys),
+         tombstones=int(ht.num_tombs), wrap_run=True, found=int(fp.sum()),
+         equal=True, fill_s=fill_s, cells_mean=float(cells.float().mean()),
+         cells_max=int(cells.max()), **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -746,7 +873,7 @@ def long_context():
                    "bound_share": b2 / k2}}
 
 
-def kernel_entries(snap, rebuilt, errs, launches, checks):
+def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
     import torch
     from repro_torch.core import batched as BT
     from repro_torch.kernels.fused_decode import (block_table_slots_ref,
@@ -757,6 +884,7 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
     from repro_torch.kernels.paged_attention.paged_attention import \
         split_count
     from repro_torch.kernels.probe import probe_lookup_kernel
+    from repro_torch.kernels.probe.probe import LANES, lookup_bytes
     from repro_torch.serving.page_table import page_key
     pk, pv = snap["pools"].k[0], snap["pools"].v[0]
     bt, pos = snap["block_table"], snap["pos"]
@@ -793,8 +921,13 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
     fp, sp = BT.find_batch(table, keys)
     if not (torch.equal(fk, fp) and torch.equal(sk, sp)):
         raise AssertionError("K3 != find_batch at the rebuild shape")
-    cells = cells_needed(table.table, BT._hash(table, keys), sp, fp)
-    k3_bytes = 4 * float(cells.sum()) + 12 * keys.shape[0]
+    k3_bound = lookup_bytes(table.table, BT._hash(table, keys), sp,
+                            fp) / HBM_BYTES_PER_S * 1e3
+    k3_ms = graph_ms(lambda: probe_lookup_kernel(table, keys), 100)
+    k3_ops, k3_op_names = device_ops(lambda: probe_lookup_kernel(table, keys))
+    if keys.dtype != torch.int64 or k3_ops != 1:
+        raise AssertionError(f"one K3 call on int64 keys launched {k3_ops} "
+                             f"device ops ({k3_op_names}), not 1")
     return [
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -826,10 +959,13 @@ def kernel_entries(snap, rebuilt, errs, launches, checks):
          "replaces": "src/repro/kernels/probe/probe.py:53",
          "launches": launches["K3"], "check_launches": checks["K3"],
          "max_abs_err": errs["K3"],
-         "ms": graph_ms(lambda: probe_lookup_kernel(table, keys), 100),
+         "ms": k3_ms, "L": LANES, "device_ops": k3_ops,
+         "device_op_names": k3_op_names, "m": BT.size(table),
+         "lookups": int(keys.shape[0]),
+         "cold_ms": cold_ms(lambda: probe_lookup_kernel(table, keys), 50),
+         "bound_share": k3_bound / k3_ms, "probe_phase": probe_phase,
          "plain_ms": cuda_ms(lambda: BT.find_batch(table, keys), 20),
-         "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None,
+         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": None,
          "eager_ms": cuda_ms(lambda: probe_lookup_kernel(table, keys), 200)},
     ]
 
@@ -870,7 +1006,7 @@ def main() -> int:
 
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     phase_attention(errs)
-    phase_probe(errs)
+    probe_phase = phase_probe(errs)
 
     cfg = model_config()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -892,7 +1028,8 @@ def main() -> int:
                              f"{expected}")
 
     midrun_logits(cfg, params, peak, peak_tokens)
-    kernels = kernel_entries(peak, rebuilt, errs, launches, checks)
+    kernels = kernel_entries(peak, rebuilt, errs, launches, checks,
+                             probe_phase)
     phase_profile(cfg, params)
     emit("done", seconds=time.time() - t0)
     print(card, flush=True)

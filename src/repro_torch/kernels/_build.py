@@ -10,7 +10,8 @@ carries a hash of the sources and flags, so a changed source is rebuilt.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  Pointers and the stream are passed as
-``ctypes.c_void_p``, sizes as ``ctypes.c_int``.
+``ctypes.c_void_p``, sizes as ``ctypes.c_int``, a 32-bit hash constant
+as ``ctypes.c_uint``.
 """
 from __future__ import annotations
 
@@ -36,15 +37,16 @@ BUILD_INFO: dict = {}
 _LIB = None
 _LOCK = threading.Lock()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float)
 _SIGNATURES = {
     # q, k, v, k_scales, v_scales, rows, ctl, n_offset,
     # B, KH, G, D, MP, NP, PS, S, scale, q_dtype, kv_dtype, partials,
     # scratch, out, o_part, m_part, l_part, stream
     "decode_attention_launch": [_P] * 7 + [_I] * 9 + [_F] + [_I] * 3
                                + [_P] * 6,
-    # table, m, keys, hv, n, found, slot, stream
-    "probe_lookup_launch": [_P, _I, _P, _P, _I, _P, _P, _P],
+    # table, m, keys, n, seed, a0, shift, found, slot, stream
+    "probe_lookup_launch": [_P, _I, _P, _I, _P, _U, _I, _P, _P, _P],
 }
 
 

@@ -1,8 +1,13 @@
 """Wrapper for the probe-lookup kernel."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import batched as BT
-from repro_torch.kernels.probe.probe import probe_lookup_kernel
+from repro_torch.kernels import stats as KS
+from repro_torch.kernels.probe.probe import (FOUND_BYTES, KEY_BYTES,
+                                             SEED_BYTES, SLOT_BYTES,
+                                             probe_lookup_kernel)
 
 
 def probe_lookup(ht: BT.HashTable, keys, *, use_kernel: bool = True,
@@ -12,13 +17,20 @@ def probe_lookup(ht: BT.HashTable, keys, *, use_kernel: bool = True,
 
     The kernel walks the LINEAR probe run, so it serves exactly the
     strategies whose lookup scan is the linear one (``kernel_supported``);
-    any other strategy raises."""
+    any other strategy raises.  A kernel call notes in ``kernels.stats``
+    the bytes it moves whatever the data: int64 keys, found, slot and the
+    seed.  (The reference notes its TPU staging of two TB-cell table
+    blocks per key tile instead; the CUDA kernel stages nothing, and the
+    table cells it reads depend on the data — ``probe.lookup_bytes``.)"""
     if strategy != "linear":
         from repro_torch.core.probe_strategies import get_strategy
         if not get_strategy(strategy).kernel_supported:
             raise ValueError(f"probe_lookup: strategy {strategy!r} does not "
                              f"probe in linear order")
     if use_kernel:
+        n = torch.as_tensor(keys).shape[0]
+        KS.note_bytes("probe_bytes", n * (KEY_BYTES + FOUND_BYTES
+                                          + SLOT_BYTES) + SEED_BYTES)
         return probe_lookup_kernel(ht, keys)
     return BT.find_batch(ht, keys)
 

@@ -320,7 +320,9 @@ def test_wrappers_raise_without_a_kernel_and_on_bad_input():
 def test_kernels_match_plain_versions_on_the_card():
     """On a CUDA device: K1 and K2 within tolerance of their plain
     versions, K1 == the K2 composition bit for bit (also on the edges of
-    the split layout), K3 == find_batch."""
+    the split layout), K3 == find_batch at every lane count, also on
+    tables of 1, 3, 5, 192 and 200000 cells and for int64 keys >= 2^32
+    and negative keys."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     from repro_torch.kernels.fused_decode import (fused_decode_plain,
@@ -354,3 +356,11 @@ def test_kernels_match_plain_versions_on_the_card():
     fk, sk = probe_lookup_kernel(port, qk)
     fp, sp = TBT.find_batch(port, qk)
     assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    for m, n_keys in ((1, 1), (3, 3), (5, 4), (192, 170), (200000, 4096)):
+        _, port, keys = _table(m, n_keys, 3, m, delete_every=3)
+        port = TBT.HashTable(*(t.cuda() for t in port))
+        low = torch.from_numpy(keys.astype(np.int64)).cuda()
+        qk = torch.cat([low, low + (5 << 32), low - (1 << 32), -low - 1])
+        fp, sp = TBT.find_batch(port, qk)
+        fk, sk = probe_lookup_kernel(port, qk)
+        assert torch.equal(fk, fp) and torch.equal(sk, sp), m
