@@ -29,22 +29,46 @@ order, each phase printing one JSON line:
                wrap), 2^18 lookups half present, timed warm (CUDA-graph
                replay) and cold (L2 flushed before each call) beside the
                byte bound of ``probe.lookup_bytes``.
-4. serve     — the main path: ``ContinuousBatcher`` serving qwen2.5-32b at
+4. strategies — for each of linear, robinhood and hopscotch: a recorded
+               mixed insert/delete/lookup trace at m = 2^14 replayed
+               through ``apply_batch`` on the card and on the CPU, table,
+               meta, counters and returns equal after every batch; then a
+               2^20-cell table filled to load 0.9 through ``insert_batch``
+               (robinhood in batches of 2047 keys: its int32 priority
+               needs m * B < 2^31), a tenth deleted and refilled, and four
+               churn rounds of 2^14 deletes and inserts at a fixed live
+               set, the invariants checked after each (every live key
+               found where it lies, absent keys not found, counters equal
+               to the census; hopscotch's meta equal to the membership of
+               its cells, no tombstone).  Fill seconds, arbitration rounds
+               and host syncs per batch, ABORTs (0 required but for
+               hopscotch, whose displacement can fail below full).  The
+               Gao no-reuse baseline runs the linear churn beside it until
+               its occupancy reaches ``needs_rebuild``.  K3 == find_batch
+               on the robinhood-built table, timed warm and cold beside
+               its byte bound; ``probe_lookup(strategy="hopscotch")``
+               raises.
+5. serve     — the main path: ``ContinuousBatcher`` serving qwen2.5-32b at
                full width with the depth cut from 64 to 8 layers (the 64
                layers' bf16 weights, about 65.5 GB, would leave too little
                of the card for anything else), random bf16 weights from a
                seed, ``fused_kernel=True``, 16 requests.  The same
                workload runs in lockstep with ``fused_kernel=False`` (plain
-               ``attend_local``); table and block table must be equal bit
-               for bit after every round, and after every round K1 is
-               held bit for bit to the K2 composition on the live state.
-5. rebuild   — the serve state after its third round, re-hashed into a 2x
-               pool with the probe kernel K3 and with the plain lookup:
-               table, block table and pools equal bit for bit.
-6. logits    — one serve step with K1 and one with the plain attention on
-               clones of the serve state with the most live pages: the
-               live lanes' logits within ``LOGITS_REL_TOL``.
-7. kernels   — each kernel's device time at the main path's shapes (the
+               ``attend_local``); table, meta and block table must be
+               equal bit for bit after every round, and after every round
+               K1 is held bit for bit to the K2 composition on the live
+               state.  Then the same under ``probe_strategy="robinhood"``
+               (0 aborts) and ``"hopscotch"`` (every request completes;
+               aborts and pool grows printed).
+6. rebuild   — each serve run's state after its third round, re-hashed
+               into a 2x pool with ``use_kernel=True`` and without: table,
+               block table and pools equal bit for bit; K3 launches once
+               for linear and robinhood, never for hopscotch, whose
+               fallback ``fallback_report`` names.
+7. logits    — one serve step with K1 and one with the plain attention on
+               clones of the linear serve state with the most live pages:
+               the live lanes' logits within ``LOGITS_REL_TOL``.
+8. kernels   — each kernel's device time at the main path's shapes (the
                serve state with the most live pages; the rebuild's keys),
                from CUDA-graph replay, beside its plain version's, its
                bound and bound share, a library call's and its eager
@@ -53,13 +77,22 @@ order, each phase printing one JSON line:
                (B=64, PS=16, MP=256, bf16, up to 4096 tokens a sequence);
                for K3 its lane count, the device ops one call launches
                (counted under ``torch.profiler``: 1 for int64 keys), cold
-               times and the probe phase's numbers;
+               times, the probe phase's numbers and the robinhood table's;
+9. sharded   — ``PrefixRouter`` over a ``ShardedPageTable`` of 4
+               simulated host groups, all on the card, at the reference's
+               shard-soak settings (48 requests at 2x overcommit, a lazy
+               grow at round 3, a host group lost at round 6), for linear
+               and hopscotch, held to a shadow page map: every request
+               completes, 0 proactive aborts, a migration finishes, and
+               the counters equal the shadow's census;
                then a profile of three serve rounds: the device's busy
                share and the kernels that take its time.
 
-Launch counts are zeroed just before phase 4 and read after phase 5: K1
-must have launched once per layer per token step, K2 never (the engine's
-attention is K1) and K3 once (the rebuild).  The per-round check's
+Launch counts are zeroed just before each serve run and read after its
+rebuild: K1 must have launched once per layer per token step, K2 never
+(the engine's attention is K1) and K3 once (the rebuild) for linear and
+robinhood, never for hopscotch; the linear run is the main path of the
+kernels line, ``launches_by_strategy`` holds all three.  The per-round check's
 launches are counted apart (``check_launches``).  A wrapper counts one
 launch per call, though K1 and K2 each make two CUDA launches (the split
 kernel and the merge).  Any failure raises and the script exits
@@ -103,6 +136,19 @@ N_REQUESTS = 16
 # workload outgrows, so the scheduler grows the pool (at 0.5, 320 pages,
 # it never does)
 OVERCOMMIT = 0.15
+
+# the strategies phase: the 2^20-cell tables at load 0.9 and their churn
+# rounds (CHURN_KEYS deleted and as many inserted a round, 1/64 of the
+# table), and the card-vs-CPU replay at m = 2^14
+STRAT_M = 1 << 20
+CHURN_ROUNDS, CHURN_KEYS = 4, (1 << 20) // 64
+REPLAY_M, REPLAY_BATCH, REPLAY_BATCHES = 1 << 14, 1024, 16
+
+# the sharded phase: the reference's shard-soak settings (4 host groups,
+# 48 requests at 2x overcommit, a forced lazy grow at round 3, a host
+# group lost at round 6)
+SOAK = dict(hosts=4, requests=48, overcommit=2.0, grow_round=3,
+            lose_round=6)
 
 
 def emit(phase: str, **fields) -> None:
@@ -496,19 +542,26 @@ def probe_edge_cases(rng, errs) -> list:
     return cases
 
 
-def churned_table(rng):
-    """The probe phase's state: a 2^20-cell table filled to load 0.9
-    through ``insert_batch``, a tenth deleted and refilled (tombstones),
-    with keys homed in the last 256 cells inserted first so a run wraps
-    past 0; and 2^18 queries, half present, 1024 of them deleted keys.
-    Returns (table, queries, fill seconds)."""
+def churned_table(rng, strategy: str = "linear"):
+    """The probe phase's state: a ``STRAT_M``-cell table (2^20) filled to
+    load 0.9 through ``insert_batch`` under ``strategy``, a tenth deleted
+    and refilled (tombstones, but none under hopscotch), with keys homed
+    in the last 256 cells inserted first so a run wraps past 0; and 2^18
+    queries, half present, 1024 of them deleted keys.  Robinhood inserts
+    in batches of 2047 keys (its int32 priority needs m * B < 2^31), the
+    others in 4096.  Returns (table, queries, fill seconds, info): info
+    holds the live keys, the never-inserted keys, the ABORTs (0 required
+    but for hopscotch), the batches, and the arbitration rounds and host
+    syncs they took."""
     import torch
     from repro_torch.core import batched as BT
     from repro_torch.core import encoding as E
-    m, load, chunk = 1 << 20, 0.9, 4096
+    from repro_torch.device import SYNC_STATS
+    m, load = STRAT_M, 0.9
+    chunk = 2047 if strategy == "robinhood" else 4096
     universe = torch.from_numpy(
         rng.choice(1 << 27, size=int(1.2 * m), replace=False)).to(DEV)
-    ht = BT.create(m, seed=SEED + 7, device=DEV)
+    ht = BT.create(m, seed=SEED + 7, strategy=strategy, device=DEV)
     tail = BT._hash(ht, universe) >= m - 256
     universe = torch.cat([universe[tail], universe[~tail]])
     n_live = int(load * m)
@@ -516,25 +569,45 @@ def churned_table(rng):
     refill = universe[n_live:n_live + m // 10]
     absent = universe[n_live + m // 10:]
     gone = first[torch.from_numpy(rng.permutation(n_live)[:m // 10]).to(DEV)]
+    stats0 = dict(BT.ROUND_STATS)
+    syncs0 = SYNC_STATS["host_syncs"]
+    aborted, batches = [], 0
     t0 = time.perf_counter()
     for keys, op in ((first, BT.insert_batch), (gone, BT.delete_batch),
                      (refill, BT.insert_batch)):
         for i in range(0, keys.shape[0], chunk):
-            ht, ret = op(ht, keys[i:i + chunk])
-            if op is BT.insert_batch and bool((ret == 2).any()):
-                raise AssertionError("insert ABORTed while filling")
+            ht, ret = op(ht, keys[i:i + chunk], strategy=strategy)
+            batches += 1
+            if op is BT.insert_batch:
+                aborted.append(keys[i:i + chunk][ret == 2])
     fill_s = time.perf_counter() - t0
+    aborted = torch.cat(aborted)
+    if aborted.numel() and strategy != "hopscotch":
+        raise AssertionError(f"{strategy}: insert ABORTed while filling")
     tab = ht.table
-    if not (bool(tab[0] != E.EMPTY) and bool(tab[-1] != E.EMPTY)) \
+    if strategy == "hopscotch":
+        # no probe runs and no tombstones: neighbourhoods wrap instead
+        if int(ht.num_tombs):
+            raise AssertionError("hopscotch: the churned table holds "
+                                 "tombstones")
+    elif not (bool(tab[0] != E.EMPTY) and bool(tab[-1] != E.EMPTY)) \
             or int(ht.num_tombs) == 0:
-        raise AssertionError("the churned table has no wrapping run or no "
-                             "tombstone")
+        raise AssertionError(f"{strategy}: the churned table has no "
+                             f"wrapping run or no tombstone")
     n = 1 << 18
-    present = first[torch.isin(first, gone, invert=True)]
+    present = first[torch.isin(first, torch.cat([gone, aborted]),
+                               invert=True)]
+    live = torch.cat([present, refill[torch.isin(refill, aborted,
+                                                 invert=True)]])
     present = present[torch.from_numpy(
         rng.permutation(present.shape[0])[:n // 2]).to(DEV)]
     queries = torch.cat([present, absent[:n // 2 - 1024], gone[:1024]])
-    return ht, queries, fill_s
+    info = {"live": live, "absent": absent, "aborts": int(aborted.numel()),
+            "batches": batches,
+            "round_stats": {k: BT.ROUND_STATS[k] - stats0[k]
+                            for k in stats0},
+            "host_syncs": SYNC_STATS["host_syncs"] - syncs0}
+    return ht, queries, fill_s, info
 
 
 def phase_probe(errs) -> dict:
@@ -546,7 +619,7 @@ def phase_probe(errs) -> dict:
     from repro_torch.kernels.probe.probe import LANES, lookup_bytes, run_cells
     rng = np.random.default_rng(SEED + 3)
     edges = probe_edge_cases(rng, errs)
-    ht, queries, fill_s = churned_table(rng)
+    ht, queries, fill_s, info = churned_table(rng)
     check_probe(ht, queries, errs)
     fp, sp = BT.find_batch(ht, queries)
     hv = BT._hash(ht, queries)
@@ -564,7 +637,223 @@ def phase_probe(errs) -> dict:
          tombstones=int(ht.num_tombs), wrap_run=True, found=int(fp.sum()),
          equal=True, fill_s=fill_s, cells_mean=float(cells.float().mean()),
          cells_max=int(cells.max()), **out)
-    return out
+    return out, (ht, queries, fill_s, info)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the three probe strategies and the no-reuse baseline.
+
+def strategy_replay(strategy: str) -> dict:
+    """A recorded mixed insert/delete/lookup trace (made from the seed) at
+    m = ``REPLAY_M`` through ``apply_batch`` on the card and the same port
+    functions on the CPU: table, meta, counters and return codes equal
+    after every batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import batched as BT
+    from repro_torch.core.spec import OP_DELETE, OP_INSERT, OP_LOOKUP
+    rng = np.random.default_rng(SEED + 23)
+    m, B = REPLAY_M, REPLAY_BATCH
+    universe = rng.choice(1 << 27, size=m + m // 4, replace=False)
+    g = BT.create(m, seed=SEED + 5, strategy=strategy, device=DEV)
+    c = BT.create(m, seed=SEED + 5, strategy=strategy, device="cpu")
+    aborts = 0
+    for i in range(REPLAY_BATCHES):
+        p_ins = 0.7 if i < REPLAY_BATCHES // 2 else 0.4
+        ops = rng.choice([OP_INSERT, OP_DELETE, OP_LOOKUP], size=B,
+                         p=[p_ins, (1 - p_ins) / 2, (1 - p_ins) / 2])
+        keys = universe[rng.integers(0, universe.size, size=B)]
+        ops_t = torch.from_numpy(ops.astype(np.int32))
+        keys_t = torch.from_numpy(keys.astype(np.int64))
+        g, rg = BT.apply_batch(g, ops_t.to(DEV), keys_t.to(DEV),
+                               strategy=strategy)
+        c, rc = BT.apply_batch(c, ops_t, keys_t, strategy=strategy)
+        same = (torch.equal(g.table.cpu(), c.table)
+                and torch.equal(g.meta.cpu(), c.meta)
+                and int(g.num_keys) == int(c.num_keys)
+                and int(g.num_tombs) == int(c.num_tombs)
+                and torch.equal(rg.cpu(), rc))
+        if not same:
+            raise AssertionError(f"{strategy}: card and CPU differ after "
+                                 f"replay batch {i}")
+        aborts += int(((ops_t == OP_INSERT) & (rc == 2)).sum())
+    return {"m": m, "batches": REPLAY_BATCHES, "batch": B,
+            "live": int(c.num_keys), "tombstones": int(c.num_tombs),
+            "aborts": aborts, "equal_every_batch": True}
+
+
+def check_invariants(ht, strategy: str, live, absent) -> None:
+    """Every live key found at a slot that holds it; absent keys not
+    found; num_keys/num_tombs equal the census; for hopscotch, ``meta``
+    equal to the membership recomputed from the cells and no tombstone."""
+    import torch
+    from repro_torch.core import batched as BT
+    from repro_torch.core import encoding as E
+    chunk = 1 << 17
+    for i in range(0, live.shape[0], chunk):
+        keys = live[i:i + chunk]
+        found, slot = BT.find_batch(ht, keys, strategy=strategy)
+        if not bool(found.all()) or not torch.equal(
+                ht.table[slot.long()], BT._final_word(BT._keys(ht, keys))):
+            raise AssertionError(f"{strategy}: a live key is lost")
+    for i in range(0, absent.shape[0], chunk):
+        found, _ = BT.find_batch(ht, absent[i:i + chunk], strategy=strategy)
+        if bool(found.any()):
+            raise AssertionError(f"{strategy}: an absent key is found")
+    tab = ht.table
+    is_key = E.dec_key(tab) != E.RESERVED_KEY
+    if not (int(ht.num_keys) == int(is_key.sum()) == live.shape[0]
+            and int(ht.num_tombs) == int((tab == E.TOMBSTONE).sum())):
+        raise AssertionError(f"{strategy}: counters differ from the census")
+    if strategy == "hopscotch":
+        m = BT.size(ht)
+        idx = torch.nonzero(is_key).flatten()
+        home = BT._hash(ht, E.dec_key(tab[idx])).long()
+        d = torch.remainder(idx - home, m)
+        mem = torch.zeros((m,), dtype=torch.int64, device=tab.device)
+        mem.index_add_(0, home, torch.ones_like(d) << d.clamp(max=40))
+        if int(ht.num_tombs) or bool((d >= 32).any()) \
+                or not torch.equal(BT.wrap_i32(mem), ht.meta):
+            raise AssertionError("hopscotch: meta differs from the "
+                                 "membership of the cells")
+
+
+def churn(ht, strategy, live, absent, rng, rounds, gao=None):
+    """``rounds`` churn rounds at a fixed live set: each deletes
+    ``CHURN_KEYS`` random live keys and inserts as many fresh ones, then
+    checks the invariants.  With ``gao`` (a copy of the table) the same
+    rounds run on it through the no-reuse baseline until it needs a
+    rebuild.  Returns the tables, the live set and the per-round
+    numbers."""
+    import torch
+    from repro_torch.core import batched as BT
+    from repro_torch.core.baselines import gao_noreuse as GN
+    chunk = 2047 if strategy == "robinhood" else 4096
+    C, nxt = CHURN_KEYS, 0
+    per_round = []
+    for r in range(rounds):
+        pick = torch.from_numpy(rng.permutation(live.shape[0])[:C]).to(DEV)
+        dead = live[pick]
+        fresh = absent[nxt:nxt + C]
+        nxt += C
+        if fresh.shape[0] < C:
+            raise AssertionError("churn ran out of fresh keys")
+        aborts = 0
+        for i in range(0, C, chunk):
+            ht, _ = BT.delete_batch(ht, dead[i:i + chunk], strategy=strategy)
+        for i in range(0, C, chunk):
+            ht, ret = BT.insert_batch(ht, fresh[i:i + chunk],
+                                      strategy=strategy)
+            ok = ret != 2
+            aborts += int((~ok).sum())
+            fresh_ok = fresh[i:i + chunk][ok]
+            live = torch.cat([live, fresh_ok])
+        keep = torch.ones(live.shape[0], dtype=torch.bool, device=DEV)
+        keep[pick] = False
+        live = live[keep]
+        if aborts and strategy != "hopscotch":
+            raise AssertionError(f"{strategy}: {aborts} ABORTs below full")
+        check_invariants(ht, strategy, live, absent[nxt:nxt + STRAT_M // 16])
+        row = {"occupancy": float(BT.occupancy(ht)),
+               "tombstones": int(ht.num_tombs), "aborts": aborts}
+        if gao is not None and not bool(GN.needs_rebuild(gao)):
+            g_ab = 0
+            for i in range(0, C, chunk):
+                gao, _ = GN.delete_batch(gao, dead[i:i + chunk])
+            for i in range(0, C, chunk):
+                gao, ret = GN.insert_batch(gao, fresh[i:i + chunk])
+                g_ab += int((ret == 2).sum())
+            row.update(gao_occupancy=float(BT.occupancy(gao)),
+                       gao_aborts=g_ab,
+                       gao_needs_rebuild=bool(GN.needs_rebuild(gao)))
+        per_round.append(row)
+    return ht, live, per_round
+
+
+def robinhood_probe(ht, queries, errs) -> dict:
+    """K3 on the robinhood-built table: equal to ``find_batch`` bit for
+    bit, timed warm and cold beside the byte bound; and K3 refuses a
+    hopscotch lookup as the reference does."""
+    from repro_torch.core import batched as BT
+    from repro_torch.kernels.probe import ops as PK
+    from repro_torch.kernels.probe import probe_lookup_kernel
+    from repro_torch.kernels.probe.probe import lookup_bytes
+    found, slot = PK.probe_lookup(ht, queries, strategy="robinhood")
+    fp, sp = BT.find_batch(ht, queries, strategy="robinhood")
+    if not (found.dtype == fp.dtype and bool((found == fp).all())
+            and bool((slot == sp).all())):
+        raise AssertionError("K3 != find_batch on the robinhood table")
+    errs["K3"] = max(errs["K3"], float((slot - sp).abs().max()))
+    try:
+        PK.probe_lookup(ht, queries[:8], strategy="hopscotch")
+        raise AssertionError("probe_lookup(strategy='hopscotch') ran")
+    except ValueError:
+        pass
+    nbytes = lookup_bytes(ht.table, BT._hash(ht, queries), sp, fp)
+    ms = graph_ms(lambda: probe_lookup_kernel(ht, queries), 10)
+    cold = cold_ms(lambda: probe_lookup_kernel(ht, queries), 20)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"equal": True, "hopscotch_raises": True, "m": BT.size(ht),
+            "lookups": int(queries.shape[0]), "found": int(fp.sum()),
+            "ms": ms, "cold_ms": cold,
+            "plain_ms": cuda_ms(lambda: BT.find_batch(ht, queries), 2),
+            "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / ms, "cold_bound_share": bound / cold}
+
+
+def phase_strategies(errs, linear_fill) -> dict:
+    """For each strategy: the card-vs-CPU replay, then the 2^20-cell table
+    (the probe phase's for linear) and ``CHURN_ROUNDS`` churn rounds with
+    the invariants checked after each; the Gao baseline runs beside
+    linear.  Returns robinhood's K3 numbers."""
+    import numpy as np
+    from repro_torch.core import batched as BT
+    from repro_torch.device import SYNC_STATS
+    rh = None
+    for strategy in ("linear", "robinhood", "hopscotch"):
+        replay = strategy_replay(strategy)
+        rng = np.random.default_rng(SEED + 3)
+        if strategy == "linear":
+            ht, queries, fill_s, info = linear_fill
+        else:
+            ht, queries, fill_s, info = churned_table(rng, strategy)
+        sample = STRAT_M // 16      # absent keys checked, never inserted
+        check_invariants(ht, strategy, info["live"], info["absent"][:sample])
+        gao = ht if strategy == "linear" else None
+        stats0 = dict(BT.ROUND_STATS)
+        syncs0 = SYNC_STATS["host_syncs"]
+        t0 = time.perf_counter()
+        ht, live, rounds = churn(ht, strategy, info["live"],
+                                 info["absent"][sample:], rng,
+                                 CHURN_ROUNDS, gao=gao)
+        churn_s = time.perf_counter() - t0
+        extra = {}
+        if strategy == "robinhood":
+            rh = robinhood_probe(ht, queries, errs)
+            extra["k3"] = rh
+        if strategy == "linear":
+            g = [r for r in rounds if "gao_occupancy" in r]
+            if not g or not g[-1]["gao_needs_rebuild"]:
+                raise AssertionError("the no-reuse baseline never reached "
+                                     "needs_rebuild")
+            if any(r["aborts"] for r in rounds):
+                raise AssertionError("linear ABORTed under churn")
+            extra["gao_rounds_to_rebuild"] = len(g)
+        emit("strategies", strategy=strategy, replay=replay,
+             m=BT.size(ht), load=0.9, fill_s=fill_s,
+             fill_batches=info["batches"],
+             fill_aborts=info["aborts"],
+             fill_round_stats=info["round_stats"],
+             fill_rounds_per_batch=(info["round_stats"]["claim_rounds"]
+                                    / info["batches"]),
+             fill_syncs_per_batch=info["host_syncs"] / info["batches"],
+             churn_rounds=CHURN_ROUNDS, churn_keys=CHURN_KEYS,
+             churn_s=churn_s, live=int(ht.num_keys),
+             churn_round_stats={k: BT.ROUND_STATS[k] - stats0[k]
+                                for k in stats0},
+             churn_host_syncs=SYNC_STATS["host_syncs"] - syncs0,
+             rounds=rounds, invariants=True, **extra)
+    return rh
 
 
 # ---------------------------------------------------------------------------
@@ -635,14 +924,17 @@ def live_two_dispatch_check(state, gen):
 def tables_equal(a, b) -> bool:
     import torch
     return (torch.equal(a["table"].table, b["table"].table)
+            and torch.equal(a["table"].meta, b["table"].meta)
             and int(a["table"].num_keys) == int(b["table"].num_keys)
             and int(a["table"].num_tombs) == int(b["table"].num_tombs)
             and torch.equal(a["block_table"], b["block_table"]))
 
 
 def phase_serve(cfg, params, checks):
-    """Returns the state after round 3, the state (and next tokens) with
-    the most live pages, and the number of megasteps dispatched."""
+    """Serves the workload under ``cfg.probe_strategy``, the fused run in
+    lockstep with the plain one.  Returns the state after round 3, the
+    state (and next tokens) with the most live pages, and the number of
+    megasteps dispatched."""
     import numpy as np
     import torch
     from repro_torch.device import SYNC_STATS
@@ -697,8 +989,18 @@ def phase_serve(cfg, params, checks):
             snap = EG.clone_state(fused.state)
     n_tok = int(tokens)
     st = fused.sched.summary()
-    if st["aborts"] or plain.sched.summary()["aborts"]:
-        raise AssertionError(f"aborts: {st['aborts']}")
+    strategy = cfg.probe_strategy
+    ps = plain.sched.summary()
+    if st["completed"] != N_REQUESTS or any(
+            st[k] != ps[k] for k in ("completed", "aborts", "pool_grows",
+                                     "preemptive_evictions")):
+        raise AssertionError(f"{strategy}: {st['completed']} of "
+                             f"{N_REQUESTS} requests completed, or the "
+                             f"fused and plain runs' schedules differ")
+    # robinhood keeps linear's exact no-ABORT bound; hopscotch's
+    # displacement can fail below full (its aborts are printed)
+    if strategy != "hopscotch" and st["aborts"]:
+        raise AssertionError(f"{strategy}: aborts: {st['aborts']}")
     if fused_decode_kernel.launches != LAYERS * MEGASTEP * megasteps:
         raise AssertionError(
             f"K1 launched {fused_decode_kernel.launches} times on the serve "
@@ -710,7 +1012,8 @@ def phase_serve(cfg, params, checks):
         a, b = np.asarray(r.sampled), np.asarray(pl[r.req_id].sampled)
         total += a.size
         same += int((a == b).sum())
-    emit("serve", arch=ARCH, layers=LAYERS, d_model=cfg.d_model,
+    emit("serve", strategy=strategy, arch=ARCH, layers=LAYERS,
+         d_model=cfg.d_model,
          n_q=cfg.n_q, n_kv=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          batch=BATCH, max_len=MAX_LEN, page_size=PAGE_SIZE,
          megastep=MEGASTEP, n_pages_start=n_pages,
@@ -728,26 +1031,36 @@ def phase_serve(cfg, params, checks):
     return snap, peak, peak_tokens, megasteps
 
 
-def phase_rebuild(snap):
+def phase_rebuild(snap, cfg):
+    """The serve state after round 3 re-hashed into a 2x pool under
+    ``cfg.probe_strategy`` with ``use_kernel=True`` and without: equal bit
+    for bit.  K3 launches once for linear and robinhood and never for
+    hopscotch, whose fallback ``fallback_report`` names."""
     import torch
     from repro_torch.kernels.probe import probe_lookup_kernel
     from repro_torch.serving import engine as EG
     from repro_torch.serving.engine import clone_state
+    strategy = cfg.probe_strategy
     m = snap["pools"].k.shape[1]
     before = probe_lookup_kernel.launches
     a = EG.rebuild_page_table(clone_state(snap), n_pages=2 * m,
-                              use_kernel=True)
+                              use_kernel=True, strategy=strategy)
+    k3 = probe_lookup_kernel.launches - before
     b = EG.rebuild_page_table(clone_state(snap), n_pages=2 * m,
-                              use_kernel=False)
+                              use_kernel=False, strategy=strategy)
     eq = (tables_equal(a, b) and torch.equal(a["pools"].k, b["pools"].k)
           and torch.equal(a["pools"].v, b["pools"].v))
     if not eq:
-        raise AssertionError("rebuild with K3 != rebuild with find_batch")
-    if probe_lookup_kernel.launches == before:
-        raise AssertionError("K3 never launched by the rebuild")
-    emit("rebuild", n_pages_from=m, n_pages_to=2 * m,
-         live_pages=int(a["table"].num_keys), equal=True,
-         k3_launches=probe_lookup_kernel.launches - before)
+        raise AssertionError(f"{strategy}: rebuild with use_kernel != "
+                             f"rebuild with find_batch")
+    report = EG.fallback_report(cfg)["probe_strategy"]
+    want = 0 if strategy == "hopscotch" else 1
+    if k3 != want or (report == f"{strategy}: ok") != (want == 1):
+        raise AssertionError(f"{strategy}: the rebuild launched K3 {k3} "
+                             f"times (expected {want}); report {report!r}")
+    emit("rebuild", strategy=strategy, n_pages_from=m, n_pages_to=2 * m,
+         live_pages=int(a["table"].num_keys), equal=True, k3_launches=k3,
+         fallback_report=report)
     return a
 
 
@@ -788,6 +1101,50 @@ def phase_profile(cfg, params):
          host_syncs=SYNC_STATS["host_syncs"] - syncs0,
          top_kernels=[{"name": k[:80], "ms": us / 1e3, "count": n}
                       for us, k, n in rows[:8]])
+
+
+# ---------------------------------------------------------------------------
+# The sharded table: the simulated multi-host storm on the card.
+
+def phase_sharded() -> None:
+    """``PrefixRouter`` over a ``ShardedPageTable`` of 4 simulated host
+    groups, every shard's tables on the one card, at the reference's
+    shard-soak settings, for linear and hopscotch.  The harness's shadow
+    page map is the oracle (checked every other round and at the end):
+    every request completes, 0 proactive aborts, a lazy migration
+    finishes, and the shards' live counters equal the shadow's census."""
+    from repro_torch.device import SYNC_STATS
+    from repro_torch.launch import shard_soak as SS
+    geo = dict(pages_per_shard=48, page_size=4, max_len=32)
+    for strategy in ("linear", "hopscotch"):
+        wl = SS.storm_workload(hosts=SOAK["hosts"],
+                               requests=SOAK["requests"],
+                               overcommit=SOAK["overcommit"], seed=SEED,
+                               **geo)
+        cluster = SS.SimCluster(hosts=SOAK["hosts"], slots_per_shard=4,
+                                megastep_k=4, strategy=strategy,
+                                fail_on_abort=True, device=DEV, **geo)
+        syncs0 = SYNC_STATS["host_syncs"]
+        t0 = time.perf_counter()
+        s = cluster.run_storm(wl, max_rounds=400,
+                              grow_round=SOAK["grow_round"],
+                              lose_round=SOAK["lose_round"])
+        secs = time.perf_counter() - t0
+        census = cluster.shadow.census()
+        if not (int(s["completed"]) == int(s["submitted"]) == len(wl)
+                and int(s["aborts_observed"]) == 0
+                and int(s["migrations_finished"]) >= 1
+                and cluster.spt.total_live_pages() == census):
+            raise AssertionError(f"sharded storm ({strategy}): {s}")
+        emit("sharded", strategy=strategy, **SOAK,
+             device=str(cluster.spt.device), rounds=int(s["rounds"]),
+             submitted=int(s["submitted"]), completed=int(s["completed"]),
+             rehomed=int(s["rehomed"]), pool_grows=int(s["pool_grows"]),
+             migrations_finished=int(s["migrations_finished"]),
+             aborts_observed=int(s["aborts_observed"]),
+             verifies=int(s["verifies"]), live_shards=int(s["live_shards"]),
+             live_pages=census, counters_equal_census=True, seconds=secs,
+             host_syncs=SYNC_STATS["host_syncs"] - syncs0)
 
 
 # ---------------------------------------------------------------------------
@@ -873,7 +1230,8 @@ def long_context():
                    "bound_share": b2 / k2}}
 
 
-def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
+def kernel_entries(snap, rebuilt, errs, by_strategy, checks, probe_phase,
+                   robinhood_k3):
     import torch
     from repro_torch.core import batched as BT
     from repro_torch.kernels.fused_decode import (block_table_slots_ref,
@@ -925,6 +1283,10 @@ def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
                             fp) / HBM_BYTES_PER_S * 1e3
     k3_ms = graph_ms(lambda: probe_lookup_kernel(table, keys), 100)
     k3_ops, k3_op_names = device_ops(lambda: probe_lookup_kernel(table, keys))
+    launches = by_strategy["linear"]
+
+    def per_strategy(k):
+        return {s: n[k] for s, n in by_strategy.items()}
     if keys.dtype != torch.int64 or k3_ops != 1:
         raise AssertionError(f"one K3 call on int64 keys launched {k3_ops} "
                              f"device ops ({k3_op_names}), not 1")
@@ -932,7 +1294,9 @@ def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/fused_decode/fused.py:52",
-         "launches": launches["K1"], "check_launches": checks["K1"],
+         "launches": launches["K1"],
+         "launches_by_strategy": per_strategy("K1"),
+         "check_launches": checks["K1"],
          "max_abs_err": errs["K1"],
          "ms": k1_ms, "splits": S, "bound_share": k1_bound / k1_ms,
          "long_context": longc["K1"],
@@ -945,7 +1309,9 @@ def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention/paged_attention.py"
                      ":29",
-         "launches": launches["K2"], "check_launches": checks["K2"],
+         "launches": launches["K2"],
+         "launches_by_strategy": per_strategy("K2"),
+         "check_launches": checks["K2"],
          "max_abs_err": errs["K2"],
          "ms": k2_ms, "splits": S, "bound_share": k2_bound / k2_ms,
          "long_context": longc["K2"],
@@ -957,13 +1323,16 @@ def kernel_entries(snap, rebuilt, errs, launches, checks, probe_phase):
         {"name": "probe_lookup", "route": "cuda",
          "source": "src/repro_torch/csrc/probe.cu",
          "replaces": "src/repro/kernels/probe/probe.py:53",
-         "launches": launches["K3"], "check_launches": checks["K3"],
+         "launches": launches["K3"],
+         "launches_by_strategy": per_strategy("K3"),
+         "check_launches": checks["K3"],
          "max_abs_err": errs["K3"],
          "ms": k3_ms, "L": LANES, "device_ops": k3_ops,
          "device_op_names": k3_op_names, "m": BT.size(table),
          "lookups": int(keys.shape[0]),
          "cold_ms": cold_ms(lambda: probe_lookup_kernel(table, keys), 50),
          "bound_share": k3_bound / k3_ms, "probe_phase": probe_phase,
+         "robinhood_probe_phase": robinhood_k3,
          "plain_ms": cuda_ms(lambda: BT.find_batch(table, keys), 20),
          "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": None,
          "eager_ms": cuda_ms(lambda: probe_lookup_kernel(table, keys), 200)},
@@ -1006,30 +1375,44 @@ def main() -> int:
 
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     phase_attention(errs)
-    probe_phase = phase_probe(errs)
+    probe_phase, linear_fill = phase_probe(errs)
+    robinhood_k3 = phase_strategies(errs, linear_fill)
+    del linear_fill
 
     cfg = model_config()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     params = lm.init(cfg, gen, DEV)
 
-    # the main path: counts from here to the end of the rebuild; the
-    # launches of the per-round check inside it are counted apart
+    # each path — the main path (linear), then robinhood and hopscotch —
+    # counts from just before its serve phase to the end of its rebuild;
+    # the launches of the per-round check inside it are counted apart
     wrappers = kernel_wrappers()
     checks = {k: 0 for k in wrappers}
-    for w in wrappers.values():
-        w.launches = 0
-    snap, peak, peak_tokens, megasteps = phase_serve(cfg, params, checks)
-    rebuilt = phase_rebuild(snap)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    # the engine's decode attention is K1; K2 is only what K1 is held to
-    expected = {"K1": LAYERS * MEGASTEP * megasteps, "K2": 0, "K3": 1}
-    if launches != expected:
-        raise AssertionError(f"main-path launches {launches}, expected "
-                             f"{expected}")
+    by_strategy = {}
+    for strategy in ("linear", "robinhood", "hopscotch"):
+        c = dataclasses.replace(cfg, probe_strategy=strategy)
+        for w in wrappers.values():
+            w.launches = 0
+        snap_s, peak_s, tokens_s, megasteps = phase_serve(c, params, checks)
+        rebuilt_s = phase_rebuild(snap_s, c)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        # the engine's decode attention is K1; K2 is only what K1 is held
+        # to; K3 serves the rebuild of the linear-order strategies
+        expected = {"K1": LAYERS * MEGASTEP * megasteps, "K2": 0,
+                    "K3": 0 if strategy == "hopscotch" else 1}
+        if launches != expected:
+            raise AssertionError(f"{strategy} path launches {launches}, "
+                                 f"expected {expected}")
+        by_strategy[strategy] = launches
+        if strategy == "linear":
+            peak, peak_tokens, rebuilt = peak_s, tokens_s, rebuilt_s
+        del snap_s, peak_s, tokens_s, rebuilt_s
+    emit("launches", by_strategy=by_strategy, checks=checks)
 
     midrun_logits(cfg, params, peak, peak_tokens)
-    kernels = kernel_entries(peak, rebuilt, errs, launches, checks,
-                             probe_phase)
+    kernels = kernel_entries(peak, rebuilt, errs, by_strategy, checks,
+                             probe_phase, robinhood_k3)
+    phase_sharded()
     phase_profile(cfg, params)
     emit("done", seconds=time.time() - t0)
     print(card, flush=True)

@@ -22,7 +22,16 @@ Port notes:
 * ``_dedup_leaders`` builds a B x B matrix, O(B^2) as in the reference;
   callers keep batches to a few thousand keys.
 
-Only the ``linear`` strategy is ported; see ``core/probe_strategies``.
+Probe strategies: every operation takes a ``strategy`` keyword (default
+``"linear"``).  ``linear`` and ``robinhood`` share one claim loop
+(``_claim_insert``) that differs only in its priority and sentinel;
+``robinhood``'s lookups and deletes are the linear ones.  ``hopscotch``
+dispatches to ``core/probe_strategies``.  ``HashTable.meta`` carries the
+strategy's metadata (hopscotch's neighbourhood bitmaps: int32 words holding
+uint32 bit patterns; empty for linear and robinhood).  ``ROUND_STATS``
+counts the arbitration rounds and displacement hops, each of which costs
+one host sync.
+
 Keys must lie in ``[0, encoding.MAX_KEY)``.
 """
 from __future__ import annotations
@@ -37,6 +46,10 @@ from repro_torch.device import host_bool, resolve_device
 
 PROBE_CHUNK = 8  # cells fetched per probe round
 
+# claim rounds of the insert loops, displacements and their hops (the
+# hopscotch loop); each round and each hop is one counted host sync
+ROUND_STATS = {"claim_rounds": 0, "displacements": 0, "hops": 0}
+
 
 class HashTable(NamedTuple):
     """Quiescent table state."""
@@ -44,26 +57,27 @@ class HashTable(NamedTuple):
     num_keys: torch.Tensor   # int32 []: live keys
     num_tombs: torch.Tensor  # int32 []: tombstones
     seed: torch.Tensor       # int32 []: hash seed
-    meta: torch.Tensor       # int32[0]: strategy metadata (none for linear)
+    meta: torch.Tensor       # int32[m] or int32[0]: strategy metadata
 
 
-def _check_strategy(strategy: str) -> None:
-    if strategy != "linear":
-        from repro_torch.core.probe_strategies import get_strategy
-        get_strategy(strategy)  # raises: only linear is ported
+def _strategy_impl(strategy: str):
+    from repro_torch.core.probe_strategies import get_strategy  # no cycle
+    return get_strategy(strategy)
 
 
 def create(m: int, seed: int = 0, strategy: str = "linear", *,
            device=None) -> HashTable:
-    _check_strategy(strategy)
+    impl = _strategy_impl(strategy)  # raises ValueError on unknown names
     dev = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=dev)
+    meta = (torch.zeros((0,), **i32) if strategy == "linear"
+            else impl.init_meta(m, dev))
     return HashTable(
         table=torch.full((m,), E.EMPTY, **i32),
         num_keys=torch.zeros((), **i32),
         num_tombs=torch.zeros((), **i32),
         seed=torch.tensor(seed, **i32),
-        meta=torch.zeros((0,), **i32),
+        meta=meta,
     )
 
 
@@ -94,6 +108,12 @@ def _active_mask(B: int, active, device) -> torch.Tensor:
     return torch.as_tensor(active, device=device).to(torch.bool)
 
 
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 words with the same bit
+    pattern (bit 31 becomes the sign bit), wrapped explicitly."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along dim 1 (0 if none), like ``jnp.argmax``
     over bool; ``torch.argmax`` rejects bool and also returns the first
@@ -109,10 +129,12 @@ def find_batch(ht: HashTable, keys, active=None, *,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(found bool[B], slot int32[B]) — slot of ``<key, final>``, or -1.
 
-    Scans each key's run in PROBE_CHUNK-cell windows until the key or an
-    EMPTY cell (end of run) is found.  This is the plain version of the
-    probe kernel (``kernels/probe``)."""
-    _check_strategy(strategy)
+    Linear and robinhood scan each key's run in PROBE_CHUNK-cell windows
+    until the key or an EMPTY cell (end of run) is found — the plain
+    version of the probe kernel (``kernels/probe``); hopscotch gathers its
+    bitmap-indicated neighbourhood instead."""
+    if strategy not in ("linear", "robinhood"):
+        return _strategy_impl(strategy).find_batch(ht, keys, active)
     keys = _keys(ht, keys)
     dev = ht.table.device
     m = size(ht)
@@ -171,16 +193,26 @@ def _dedup_leaders(keys: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
     return ~_dup_of_earlier(keys, act) & act
 
 
-def insert_batch(ht: HashTable, keys, active=None,
-                 claim_tombstones: bool = True, *,
-                 strategy: str = "linear"
-                 ) -> Tuple[HashTable, torch.Tensor]:
-    """Insert a batch; ret int32[B]: 1 = inserted, 0 = present, duplicate
-    in batch or inactive, 2 = ABORT (no available cell).
+def _finalize_insert_ret(keys, act, leader, present, placed, aborted):
+    """Insert return codes: 1 = inserted, 0 = present, duplicate or
+    inactive, 2 = ABORT, with a non-leader duplicate of an aborted leader
+    also aborting (sequentially the leader ran first and the table is still
+    full)."""
+    ret = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    ret = torch.where(placed, 1, ret)
+    ret = torch.where(aborted, 2, ret)
+    leader_aborted = _dup_of_earlier(keys, aborted)
+    return torch.where(act & ~leader & ~present & leader_aborted, 2,
+                       ret).to(torch.int32)
 
-    ``claim_tombstones=False`` reproduces the no-reuse behaviour of [7,14]
-    (only EMPTY cells are claimable)."""
-    _check_strategy(strategy)
+
+def _claim_insert(ht: HashTable, keys, active, claim_tombstones: bool,
+                  priority, sentinel: int) -> Tuple[HashTable, torch.Tensor]:
+    """The linear probe's claim loop: each round every pending lane tries
+    the next cell of its probe sequence, and the lowest ``priority(cursor)``
+    (int32[B]) wins each contested cell under scatter-min; ``sentinel``
+    exceeds every priority.  ``linear`` ranks by batch index, ``robinhood``
+    by displacement first (``core/probe_strategies``)."""
     keys = _keys(ht, keys)
     dev = ht.table.device
     m = size(ht)
@@ -191,7 +223,6 @@ def insert_batch(ht: HashTable, keys, active=None,
     present, _ = find_batch(ht, keys, act)
     word = _final_word(keys)
 
-    pri = torch.arange(B, dtype=torch.int32, device=dev)
     trash = torch.full((1,), E.EMPTY, dtype=torch.int32, device=dev)
     table = torch.cat([ht.table, trash])                # row m = trash
     cursor = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -200,15 +231,17 @@ def insert_batch(ht: HashTable, keys, active=None,
     aborted = torch.zeros((B,), dtype=torch.bool, device=dev)
     tombs_used = torch.zeros((), dtype=torch.int64, device=dev)
     while host_bool(pending.any()):
+        ROUND_STATS["claim_rounds"] += 1
         cand = torch.remainder(hv + cursor, m)
         cur = table[cand]
         if claim_tombstones:
             avail = E.is_available(cur) & pending
         else:
             avail = (cur == E.EMPTY) & pending
-        # claim: lowest batch index wins each contested cell
+        pri = priority(cursor)
         claim_idx = torch.where(avail, cand, m)         # m -> trash
-        claims = torch.full((m + 1,), B, dtype=torch.int32, device=dev)
+        claims = torch.full((m + 1,), sentinel, dtype=torch.int32,
+                            device=dev)
         claims.scatter_reduce_(0, claim_idx, pri, reduce="amin")
         won = avail & (claims[cand] == pri)
         was_tomb = won & (cur == E.TOMBSTONE)
@@ -222,17 +255,31 @@ def insert_batch(ht: HashTable, keys, active=None,
         aborted = aborted | ab
         pending = pending & ~won & ~ab
 
-    ret = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ret = torch.where(placed, 1, ret)
-    ret = torch.where(aborted, 2, ret)
-    # a non-leader duplicate of an aborted leader also aborts
-    leader_aborted = _dup_of_earlier(keys, aborted)
-    ret = torch.where(act & ~leader & ~present & leader_aborted, 2, ret)
+    ret = _finalize_insert_ret(keys, act, leader, present, placed, aborted)
     ht2 = ht._replace(
         table=table[:m],
         num_keys=(ht.num_keys + placed.sum()).to(torch.int32),
         num_tombs=(ht.num_tombs - tombs_used).to(torch.int32))
     return ht2, ret
+
+
+def insert_batch(ht: HashTable, keys, active=None,
+                 claim_tombstones: bool = True, *,
+                 strategy: str = "linear"
+                 ) -> Tuple[HashTable, torch.Tensor]:
+    """Insert a batch; ret int32[B]: 1 = inserted, 0 = present, duplicate
+    in batch or inactive, 2 = ABORT (no available cell).
+
+    ``claim_tombstones=False`` reproduces the no-reuse behaviour of [7,14]
+    (only EMPTY cells are claimable; ``core/baselines/gao_noreuse``)."""
+    if strategy != "linear":
+        return _strategy_impl(strategy).insert_batch(ht, keys, active,
+                                                     claim_tombstones)
+    B = torch.as_tensor(keys).shape[0]
+    lane = torch.arange(B, dtype=torch.int32, device=ht.table.device)
+    # claim: lowest batch index wins each contested cell
+    return _claim_insert(ht, keys, active, claim_tombstones,
+                         lambda cursor: lane, sentinel=B)
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +288,8 @@ def insert_batch(ht: HashTable, keys, active=None,
 def delete_batch(ht: HashTable, keys, active=None, *,
                  strategy: str = "linear"
                  ) -> Tuple[HashTable, torch.Tensor]:
-    _check_strategy(strategy)
+    if strategy not in ("linear", "robinhood"):
+        return _strategy_impl(strategy).delete_batch(ht, keys, active)
     keys = _keys(ht, keys)
     dev = ht.table.device
     m = size(ht)

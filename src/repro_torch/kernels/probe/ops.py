@@ -16,17 +16,23 @@ def probe_lookup(ht: BT.HashTable, keys, *, use_kernel: bool = True,
     (found bool[B], slot int32[B]), a drop-in for ``batched.find_batch``.
 
     The kernel walks the LINEAR probe run, so it serves exactly the
-    strategies whose lookup scan is the linear one (``kernel_supported``);
-    any other strategy raises.  A kernel call notes in ``kernels.stats``
-    the bytes it moves whatever the data: int64 keys, found, slot and the
-    seed.  (The reference notes its TPU staging of two TB-cell table
-    blocks per key tile instead; the CUDA kernel stages nothing, and the
-    table cells it reads depend on the data — ``probe.lookup_bytes``.)"""
+    strategies whose lookup scan is the linear one (``kernel_supported``:
+    ``linear`` and ``robinhood``, whose claims land only on cells walked in
+    probe order, so a key's run holds no EMPTY cell); ``hopscotch``'s
+    neighbourhood gather raises, as in the reference — the page-table
+    facade routes it to the strategy's ``find_batch`` instead.  A kernel
+    call notes in ``kernels.stats`` the bytes it moves whatever the data:
+    int64 keys, found, slot and the seed.  (The reference notes its TPU
+    staging of two TB-cell table blocks per key tile instead; the CUDA
+    kernel stages nothing, and the table cells it reads depend on the data
+    — ``probe.lookup_bytes``.)"""
     if strategy != "linear":
         from repro_torch.core.probe_strategies import get_strategy
         if not get_strategy(strategy).kernel_supported:
-            raise ValueError(f"probe_lookup: strategy {strategy!r} does not "
-                             f"probe in linear order")
+            raise ValueError(
+                f"probe_lookup: strategy {strategy!r} does not probe in "
+                f"linear order — use the strategy's find_batch (the facade "
+                f"routes this automatically)")
     if use_kernel:
         n = torch.as_tensor(keys).shape[0]
         KS.note_bytes("probe_bytes", n * (KEY_BYTES + FOUND_BYTES

@@ -23,7 +23,8 @@ Usage (GPU, qwen2.5-32b at full width, depth cut to 8 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       --layers 8 --fused-kernel --batch 8 --max-len 1024 --page-size 16 \\
       --megastep 8 --requests 16 --verify-block-table --fail-on-abort
-CPU smoke: add ``--smoke --device cpu``.
+CPU smoke: add ``--smoke --device cpu``.  ``--probe-strategy
+{linear,robinhood,hopscotch}`` picks the allocator.
 """
 from __future__ import annotations
 
@@ -366,6 +367,11 @@ def main():
     ap.add_argument("--no-proactive", action="store_true")
     ap.add_argument("--fail-on-abort", action="store_true")
     ap.add_argument("--verify-block-table", action="store_true")
+    ap.add_argument("--probe-strategy", default="linear",
+                    choices=["linear", "robinhood", "hopscotch"],
+                    help="page-allocator probe strategy (cfg.probe_strategy;"
+                         " hopscotch = tombstone-free deletes + scheduler "
+                         "slack, see core/probe_strategies.py)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--trace", default=None, metavar="PATH")
@@ -380,6 +386,8 @@ def main():
         over["fused_kernel"] = True
     if args.telemetry:
         over["telemetry"] = True
+    if args.probe_strategy != cfg.probe_strategy:
+        over["probe_strategy"] = args.probe_strategy
     cfg = dataclasses.replace(cfg, **over)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)

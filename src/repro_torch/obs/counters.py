@@ -4,12 +4,13 @@
 decode state (``state["counters"]``) when ``cfg.telemetry`` is on; the
 engine accumulates it on the device and the batcher reads it at the round's
 existing host sync.  When the knob is off the leaf does not exist and every
-update site keys on ``"counters" in state``.  The reference's host plane
-(``HOST_COUNTERS``) serves only the sharded table, which is not ported
-(ROADMAP item 20).
+update site keys on ``"counters" in state``.  The host plane
+(``HOST_COUNTERS``) counts the eager host-driven work that has no device
+state to ride: the sharded table's migration sweeps (``dist/table_shard``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple
 
 import torch
@@ -78,3 +79,27 @@ def note_free(counters: Counters, *, table_before, table_after) -> Counters:
         tombstones_created=_i32(counters.tombstones_created
                                 + dt.clamp_min(0)))
 
+
+
+# -- host plane -------------------------------------------------------------
+
+HOST_COUNTERS: Dict[str, int] = {f: 0 for f in Counters._fields}
+
+
+def note_host(field: str, n: int) -> None:
+    HOST_COUNTERS[field] = HOST_COUNTERS.get(field, 0) + int(n)
+
+
+@contextlib.contextmanager
+def host_counters_scope():
+    """Zero the host plane for the ``with`` body; restore (outer + body)
+    afterwards so nesting composes additively."""
+    outer = dict(HOST_COUNTERS)
+    for k in HOST_COUNTERS:
+        HOST_COUNTERS[k] = 0
+    try:
+        yield HOST_COUNTERS
+    finally:
+        body = dict(HOST_COUNTERS)
+        for k in HOST_COUNTERS:
+            HOST_COUNTERS[k] = outer.get(k, 0) + body.get(k, 0)

@@ -76,11 +76,15 @@ def _fused_kernel_ok(cfg, rules=None) -> bool:
 
 
 def _probe_strategy_reason(cfg, rules=None) -> Optional[str]:
+    """Why ``cfg.probe_strategy`` runs without the probe kernel — None when
+    fully served.  The strategy itself always runs; only the bulk
+    block-table rebuild degrades to the strategy's ``find_batch``.  The
+    string is the reference's, word for word."""
     from repro_torch.core.probe_strategies import get_strategy
-    impl = get_strategy(cfg.probe_strategy)  # raises on unported names
+    impl = get_strategy(cfg.probe_strategy)  # raises on unknown names
     if not impl.kernel_supported:
-        return ("probe kernel assumes the linear probe order: bulk "
-                "block-table rebuilds serve from the plain lookup")
+        return ("Pallas probe kernel assumes the linear probe order: bulk "
+                "block-table rebuilds serve from the jnp oracle")
     return None
 
 
@@ -162,11 +166,21 @@ def rebuild_page_table(state: Dict[str, Any], *,
                        strategy: str = "linear") -> Dict[str, Any]:
     """Section 4.3 ABORT recovery: re-hash the page table into ``n_pages``
     cells and MOVE the physical KV pages to their keys' new slots (the cell
-    index IS the page).  Rebuilds the block-table cache from the fresh
-    table — through the probe kernel K3 when ``use_kernel`` — and clears
-    ``aborted``.  Returns a new state; the given one is left as it was."""
+    index IS the page), under ``strategy`` (the one the state was built
+    with).  Rebuilds the block-table cache from the fresh table — through
+    the probe kernel K3 when ``use_kernel`` and the strategy probes in
+    linear order — and clears ``aborted``.  Returns a new state; the given
+    one is left as it was."""
     table = state["table"]
     pt = PT.for_strategy(strategy)
+    # hopscotch carries a meta bitmap, linear and robinhood none: rebuilding
+    # with the wrong strategy would corrupt the table
+    if (table.meta.numel() > 0) != (
+            pt.create_table(1, device=table.table.device).meta.numel() > 0):
+        raise ValueError(
+            f"rebuild_page_table: state's table metadata does not match "
+            f"strategy {strategy!r} — pass the strategy the state was "
+            f"built with (cfg.probe_strategy)")
     m = BT.size(table)
     new_m = m if n_pages is None else n_pages
     fresh, old_slots, new_slots, live = pt.rehash(table, new_m, seed)
@@ -251,6 +265,10 @@ def _warn_fallbacks(cfg, rules) -> None:
         logger.warning("fused decode kernel unavailable for %s — %s; using "
                        "the two-dispatch attend path", cfg.name,
                        _fused_kernel_reason(cfg, rules))
+    if _probe_strategy_reason(cfg, rules) is not None:
+        logger.warning("probe strategy %s partially degraded for %s — %s",
+                       cfg.probe_strategy, cfg.name,
+                       _probe_strategy_reason(cfg, rules))
 
 
 def make_serve_step(cfg, *, S_max: int, rules=None,

@@ -1,5 +1,5 @@
 """The paper's hash table as the paged-KV page table / allocator (PyTorch
-port of ``serving/page_table.py``, linear strategy).
+port of ``serving/page_table.py``).
 
 The table has one cell per physical KV page, keyed by ``(seq_id,
 logical_page)``; claiming cell i allocates physical page i.  ``insert`` is
@@ -15,7 +15,10 @@ wait-free lookup stays the authoritative read for admission, after a
 Section 4.3 rebuild (``rebuild_block_table``) and in the verification
 mode (``verify_block_table``).
 
-Every state and result here equals the JAX facade's bit for bit.  The
+The ``PageTable`` facade binds one probe strategy (``linear``,
+``robinhood`` or ``hopscotch``, ``core/probe_strategies``) and threads it
+through every operation.  Every state and result here equals the JAX
+facade's bit for bit.  The
 facade is functional: table and block table are returned, never written
 in place.  ``PROBE_STATS`` counts every call (the port is eager; the JAX
 package counts only its eager calls, not those inside a jitted megastep).
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,6 +37,8 @@ from repro_torch.core import batched as BT
 from repro_torch.core import encoding as E
 from repro_torch.core.probe_strategies import get_strategy
 from repro_torch.device import host_int
+
+logger = logging.getLogger(__name__)
 
 MAX_LOGICAL_PAGES = 2048  # 2^11 -> 500k tokens at page_size 256
 
@@ -85,7 +91,11 @@ class PageTableStats(NamedTuple):
 class Headroom(NamedTuple):
     """Occupancy/headroom view of the page pool (host ints — the admission
     controller's input).  ``free_cells = n_pages - live_pages``: with
-    tombstone reuse a TOMBSTONE cell is immediately re-claimable."""
+    tombstone reuse a TOMBSTONE cell is immediately re-claimable.  Under
+    hopscotch there are no tombstones, but displacement can fail before
+    the pool is full, so ``slack`` carries the strategy's
+    ``forecast_slack`` for the forecaster's gate ``demand + safety + slack
+    <= free_cells``."""
     n_pages: int
     live_pages: int
     tombstones: int
@@ -103,12 +113,13 @@ def _bool(x, shape, device) -> torch.Tensor:
 
 
 class PageTable:
-    """Strategy-bound facade over the allocator (only ``linear`` is
-    ported).  Table state is passed in and returned."""
+    """Strategy-bound facade over the allocator.  Table state is passed in
+    and returned."""
 
     def __init__(self, strategy: str = "linear"):
-        self._impl = get_strategy(strategy)  # raises for unported ones
+        self._impl = get_strategy(strategy)  # validates the name eagerly
         self.strategy = strategy
+        self._kernel_fallback_logged = False
 
     # -- construction / maintenance ------------------------------------
 
@@ -224,8 +235,9 @@ class PageTable:
     def free_sequences(self, table: BT.HashTable, seq_ids, positions, *,
                        page_size: int, max_pages: int,
                        active=None) -> BT.HashTable:
-        """Evict sequences: delete all their page keys; the cells become
-        TOMBSTONEs that later allocations reuse (no rebuild)."""
+        """Evict sequences: delete all their page keys.  Linear and
+        robinhood leave TOMBSTONEs that later allocations reuse (no
+        rebuild); hopscotch returns the cells to EMPTY outright."""
         dev = table.table.device
         seq_ids = torch.as_tensor(seq_ids, device=dev)
         positions = torch.as_tensor(positions, device=dev)
@@ -267,12 +279,23 @@ class PageTable:
         verification mode.  Every present page is cached regardless of the
         current position.  ``use_kernel=True`` serves the bulk lookup
         through the probe kernel K3 (``kernels/probe``): bitwise the same
-        rows."""
+        rows.  K3 walks the linear probe order: for a strategy it does not
+        serve (hopscotch) the rows come from the strategy's ``find_batch``,
+        logged once and shown by ``engine.fallback_report``."""
         dev = table.table.device
         seq_ids = torch.as_tensor(seq_ids, device=dev)
         B = seq_ids.shape[0]
         logical = torch.arange(max_pages, dtype=torch.int64, device=dev)
         keys = page_key(seq_ids[:, None], logical[None, :]).reshape(-1)
+        if use_kernel and not self._impl.kernel_supported:
+            if not self._kernel_fallback_logged:
+                logger.warning(
+                    "probe kernel fallback: strategy %r is not supported "
+                    "by the probe kernel (linear probe order); serving "
+                    "rebuild_block_table from the strategy's find_batch",
+                    self.strategy)
+                self._kernel_fallback_logged = True
+            use_kernel = False
         if use_kernel:
             from repro_torch.kernels.probe import ops as PK
             found, slots = PK.probe_lookup(table, keys,
@@ -321,6 +344,8 @@ class PageTable:
                               occupancy=BT.occupancy(table))
 
     def forecast_slack(self, n_pages: int) -> int:
+        """Extra free cells the forecaster must hold for this strategy's
+        no-ABORT guarantee (0 for linear/robinhood: Prop. 2 is exact)."""
         return self._impl.forecast_slack(n_pages)
 
     @staticmethod

@@ -223,6 +223,45 @@ def test_rebuild_matches_reference_and_kernel_path(params):
     assert torch.equal(tr["pools"].k, tk["pools"].k)
 
 
+@pytest.mark.parametrize("strategy", ["robinhood", "hopscotch"])
+def test_rebuild_per_strategy_matches_reference(params, strategy):
+    """With ``cfg.probe_strategy`` set, six decode steps and a rebuild
+    into a 2x pool equal the reference's state (table, meta, block table,
+    pools); ``use_kernel=True`` gives the same state (K3's plain version
+    for robinhood, the strategy's find_batch for hopscotch); rebuilding
+    with a strategy whose metadata differs raises as in the reference."""
+    jp, tp = params
+    jc, tc = _cfgs(probe_strategy=strategy)
+    B, S, ps = 2, 16, 4
+    toks = np.random.default_rng(4).integers(0, jc.vocab_size, (B, 6))
+    js, _ = JEG.make_decode_state(jc, B, S_max=S, page_size=ps)
+    ts, _ = EG.make_decode_state(tc, B, S_max=S, page_size=ps, device="cpu")
+    jstep = jax.jit(JEG.make_serve_step(jc, S_max=S, page_size=ps))
+    tstep = EG.make_serve_step(tc, S_max=S, page_size=ps)
+    for t in range(6):
+        _, js = jstep(jp, js, jnp.asarray(toks[:, t:t + 1]),
+                      jnp.full((B,), t, jnp.int32))
+        _, ts = tstep(tp, ts, torch.from_numpy(toks[:, t:t + 1]),
+                      torch.full((B,), t, dtype=torch.int32))
+    _same_state(js, ts)
+    n = ts["pools"].k.shape[1] * 2
+    jr = JEG.rebuild_page_table(js, n_pages=n, strategy=strategy)
+    tr = EG.rebuild_page_table(ts, n_pages=n, strategy=strategy)
+    tk = EG.rebuild_page_table(ts, n_pages=n, strategy=strategy,
+                               use_kernel=True)
+    _same_state(jr, tr)
+    np.testing.assert_array_equal(
+        np.asarray(jr["table"].meta),
+        tr["table"].meta.numpy().astype(np.int64).astype(np.uint32))
+    for k in ("block_table", "pos"):
+        assert torch.equal(tr[k], tk[k])
+    assert torch.equal(tr["table"].table, tk["table"].table)
+    assert torch.equal(tr["pools"].k, tk["pools"].k)
+    other = "linear" if strategy == "hopscotch" else "hopscotch"
+    with pytest.raises(ValueError, match="metadata does not match"):
+        EG.rebuild_page_table(ts, n_pages=n, strategy=other)
+
+
 def test_unported_paths_raise():
     """Other families, int8 KV in the engine and a mesh raise and name
     their ROADMAP item; fallback reasons keep the reference's strings."""

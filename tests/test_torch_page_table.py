@@ -283,3 +283,107 @@ def test_paged_kv_functions_match_reference():
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
                                    atol=1e-5)
     assert JP.capacity(3, 4, 1) == TP.capacity(3, 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# The other probe strategies through the facade.
+
+@pytest.mark.parametrize("strategy", ["robinhood", "hopscotch"])
+def test_strategy_churn_and_rebuild_rows_match_reference(strategy):
+    """Admit / decode / evict churn through each strategy's facade: table,
+    meta, block table and write slots equal the JAX facade's every step;
+    ``note_free``'s counters equal the reference's (hopscotch frees to
+    EMPTY: pages freed, no tombstone created); and ``rebuild_block_table``
+    — K3's plain version for robinhood, the strategy's find_batch for
+    hopscotch — gives the reference's rows."""
+    from repro.obs import counters as JOC
+    from repro_torch.obs import counters as TOC
+    jpt, tpt = JPT.for_strategy(strategy), TPT.for_strategy(strategy)
+    n_pages, B, ps, maxP = 64, 4, 2, 12
+    j = jpt.create_table(n_pages, seed=1)
+    t = tpt.create_table(n_pages, seed=1, device="cpu")
+    bj = jnp.full((B, maxP), -1, jnp.int32)
+    bt = torch.full((B, maxP), -1, dtype=torch.int32)
+    jc, tc = JOC.Counters.zeros(), TOC.Counters.zeros()
+    seq = np.arange(B, dtype=np.int32)
+    pos = np.zeros(B, np.int32)
+    rng = np.random.default_rng(3)
+    for round_ in range(20):
+        (j, wj, _), bj = jpt.alloc_step_incremental(
+            j, jnp.asarray(seq), jnp.asarray(pos), bj, page_size=ps)
+        (t, wt, _), bt = tpt.alloc_step_incremental(
+            t, torch.from_numpy(seq), torch.from_numpy(pos), bt,
+            page_size=ps)
+        same_table(j, t)
+        np.testing.assert_array_equal(np.asarray(j.meta), u32(t.meta))
+        same(wj, wt)
+        same(bj, bt)
+        pos = pos + 1
+        if round_ % 5 == 4:
+            mask = np.zeros(B, bool)
+            mask[int(rng.integers(B))] = True
+            j2 = jpt.free_sequences(j, jnp.asarray(seq), jnp.asarray(pos),
+                                    page_size=ps, max_pages=maxP,
+                                    active=jnp.asarray(mask))
+            t2 = tpt.free_sequences(t, torch.from_numpy(seq),
+                                    torch.from_numpy(pos), page_size=ps,
+                                    max_pages=maxP,
+                                    active=torch.from_numpy(mask))
+            jc = JOC.note_free(jc, table_before=j, table_after=j2)
+            tc = TOC.note_free(tc, table_before=t, table_after=t2)
+            j, t = j2, t2
+            same_table(j, t)
+            bj = jpt.invalidate_block_rows(bj, jnp.asarray(mask))
+            bt = tpt.invalidate_block_rows(bt, torch.from_numpy(mask))
+            seq = np.where(mask, seq + 100, seq).astype(np.int32)
+            pos = np.where(mask, 0, pos).astype(np.int32)
+    assert TOC.snapshot(tc) == JOC.snapshot(jc)
+    assert TOC.snapshot(tc)["pages_freed"] > 0
+    if strategy == "hopscotch":
+        assert TOC.snapshot(tc)["tombstones_created"] == 0
+    want = jpt.rebuild_block_table(j, jnp.asarray(seq), maxP)
+    same(want, tpt.rebuild_block_table(t, torch.from_numpy(seq), maxP,
+                                       use_kernel=True))
+    same(want, tpt.rebuild_block_table(t, torch.from_numpy(seq), maxP))
+    assert jpt.headroom(j) == tpt.headroom(t)
+
+
+def test_hopscotch_rebuild_falls_back_logs_once_and_reports(caplog):
+    """``rebuild_block_table(use_kernel=True)`` on a hopscotch table serves
+    the rows from the strategy's find_batch (K3 never launches), logs the
+    fallback once, and ``fallback_report`` gives the reference's string;
+    linear and robinhood report ok."""
+    import dataclasses
+    import logging
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.serving import engine as JEG
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.probe_strategies import get_strategy
+    from repro_torch.kernels.probe import probe_lookup_kernel
+    from repro_torch.serving import engine as TEG
+    pt = TPT.PageTable("hopscotch")          # a fresh facade: log state
+    table = pt.create_table(64, seed=2, device="cpu")
+    seq = torch.arange(3, dtype=torch.int32)
+    table, _ = pt.prefill_alloc(table, seq, torch.tensor([5, 9, 1]),
+                                page_size=2, max_pages=8)
+    launches = probe_lookup_kernel.launches
+    with caplog.at_level(logging.WARNING, logger=TPT.__name__):
+        rows = [pt.rebuild_block_table(table, seq, 8, use_kernel=True)
+                for _ in range(2)]
+    fallbacks = [r for r in caplog.records if "fallback" in r.getMessage()]
+    assert len(fallbacks) == 1
+    assert probe_lookup_kernel.launches == launches
+    plain = pt.rebuild_block_table(table, seq, 8)
+    assert torch.equal(rows[0], plain) and torch.equal(rows[1], plain)
+    keys = TPT.page_key(seq[:, None].long(), torch.arange(8)[None, :])
+    found, slots = get_strategy("hopscotch").find_batch(table,
+                                                        keys.reshape(-1))
+    assert torch.equal(plain.reshape(-1), torch.where(found, slots, -1))
+    for name in ("linear", "robinhood", "hopscotch"):
+        jc = dataclasses.replace(j_smoke("qwen2.5-32b"), probe_strategy=name)
+        tc = dataclasses.replace(get_smoke_config("qwen2.5-32b"),
+                                 probe_strategy=name)
+        assert TEG.fallback_report(tc) == JEG.fallback_report(jc)
+        ok = TEG.fallback_report(tc)["probe_strategy"] == f"{name}: ok"
+        assert ok == (name != "hopscotch")

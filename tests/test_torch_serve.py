@@ -2,7 +2,8 @@
 
 Four requests, batch 2, max_len 24, K=4, block-table verification every
 round, on the dense smoke config in f32 with the reference's parameters
-converted: the same completions, the same sampled tokens and 0 aborts, and
+converted, under each probe strategy (``cfg.probe_strategy``): the same
+completions, the same sampled tokens, table and meta, and 0 aborts, and
 the port's JSONL trace passes ``tools/trace_report.py --check-invariants``
 and equals the reference's trace event for event (but for
 ``keys_probed``: the port counts every probe, the JAX package only those
@@ -11,6 +12,7 @@ made outside its jitted megastep).
 import dataclasses
 import importlib.util
 import os
+import sys
 
 import jax
 import numpy as np
@@ -48,9 +50,13 @@ def _drop_probes(evs):
     return [{k: v for k, v in e.items() if k != "keys_probed"} for e in evs]
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_batcher_matches_reference(tmp_path, fused):
-    kw = dict(dtype="float32", fused_kernel=fused)
+@pytest.mark.parametrize(
+    "fused,strategy",
+    [(False, "linear"), (True, "linear"), (True, "robinhood"),
+     (True, "hopscotch")],
+    ids=["False", "True", "robinhood", "hopscotch"])
+def test_batcher_matches_reference(tmp_path, fused, strategy):
+    kw = dict(dtype="float32", fused_kernel=fused, probe_strategy=strategy)
     jc = dataclasses.replace(j_smoke("qwen2.5-32b"), **kw)
     tc = dataclasses.replace(get_smoke_config("qwen2.5-32b"), **kw)
     jp, _ = j_lm.init(jc, jax.random.PRNGKey(0))
@@ -76,6 +82,13 @@ def test_batcher_matches_reference(tmp_path, fused):
     port.emit_summary()
     ttr.close()
 
+    assert port.strategy == strategy
+    np.testing.assert_array_equal(
+        np.asarray(ref.state["table"].table),
+        port.state["table"].table.numpy().astype(np.int64).astype(np.uint32))
+    np.testing.assert_array_equal(
+        np.asarray(ref.state["table"].meta),
+        port.state["table"].meta.numpy().astype(np.int64).astype(np.uint32))
     assert port.sched.stats.completed == ref.sched.stats.completed == 4
     assert port.sched.stats.aborts == ref.sched.stats.aborts == 0
     want = {r.req_id: r.sampled for r in ref.sched.finished}
@@ -87,3 +100,21 @@ def test_batcher_matches_reference(tmp_path, fused):
     assert tool.check_invariants(path, evs) == []
     assert _drop_probes(evs) == _drop_probes(
         tool.load(str(tmp_path / "ref.jsonl")))
+
+
+@pytest.mark.parametrize("strategy", ["robinhood", "hopscotch"])
+def test_cli_probe_strategy(monkeypatch, capsys, strategy):
+    """``python -m repro_torch.launch.serve --probe-strategy S --smoke
+    --device cpu`` drains its workload with 0 aborts under each strategy
+    and reports the strategy it ran."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "qwen2.5-32b", "--smoke", "--device", "cpu",
+        "--batch", "2", "--max-len", "24", "--page-size", "4",
+        "--megastep", "4", "--requests", "3", "--rounds", "20",
+        "--verify-block-table", "--fused-kernel", "--fail-on-abort",
+        "--probe-strategy", strategy])
+    assert serve.main() == 0
+    out = capsys.readouterr().out
+    assert f"'probe_strategy': '{strategy}: " in out
+    assert "completed=3" in out and "aborts=0" in out

@@ -292,17 +292,19 @@ def test_roundtrip_duplicates_and_reuse():
 
 
 def test_unported_strategies_raise():
-    """Only linear is ported: the others raise and name ROADMAP item 19;
-    they are never replaced by linear."""
+    """Every strategy of the reference is ported now: robinhood and
+    hopscotch build working tables and facades (never a linear stand-in:
+    hopscotch carries its bitmap), and only a name the reference does not
+    know raises, with the reference's ValueError."""
     for name in ("robinhood", "hopscotch"):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            get_strategy(name)
-        with pytest.raises(NotImplementedError):
-            TBT.create(8, strategy=name, device="cpu")
-        with pytest.raises(NotImplementedError):
-            TPT.PageTable(name)
+        assert get_strategy(name).name == name
+        ht = TBT.create(8, strategy=name, device="cpu")
+        assert ht.meta.numel() == (8 if name == "hopscotch" else 0)
+        assert TPT.PageTable(name).strategy == name
     with pytest.raises(ValueError):
         get_strategy("cuckoo")
+    with pytest.raises(ValueError):
+        TBT.create(8, strategy="cuckoo", device="cpu")
 
 
 def test_cuda_request_without_card_raises():
