@@ -78,7 +78,32 @@ order, each phase printing one JSON line:
                for K3 its lane count, the device ops one call launches
                (counted under ``torch.profiler``: 1 for int64 keys), cold
                times, the probe phase's numbers and the robinhood table's;
-9. sharded   — ``PrefixRouter`` over a ``ShardedPageTable`` of 4
+9. families  — phase ``serve``'s machinery (the fused run in lockstep with
+               the plain one, tables equal and K1 == the K2 composition
+               every round, the rebuild with K3) for the other attention
+               families, random bf16 weights from the seed:
+               ``moe``    granite-moe-1b-a400m at full width and depth
+                          (24 layers, 32 experts top-8), the serve traffic;
+                          one megastep run twice from clones of one state
+                          must give the same bits (the MoE combine has no
+                          atomic add);
+               ``gemma3`` gemma3-12b at full width and the published 1024
+                          window, depth cut 48 -> 12 (two 5:1 superblocks:
+                          10 ring layers, 2 paged), 12 requests of 900-1100
+                          new tokens on 8 lanes, max_len 1536, so every
+                          lane passes the window and 4 lanes are re-seated
+                          (their rings reset); one lane's decode logits
+                          past the window are held to ``lm.forward`` of
+                          the same tokens within ``FORWARD_REL_TOL``;
+               ``vlm``    qwen2-vl-7b at full width (28 -> 32 q-heads over
+                          4 KV heads: G = 8 on K1, M-RoPE), 8 layers;
+               ``int8``   the serve phase's qwen2.5-32b with
+                          ``kv_cache_dtype="int8"``: int8 pools with bf16
+                          scales through the engine and K1.
+               Each also holds one K1 and one plain serve step on clones
+               of its state with the most live pages within
+               ``LOGITS_REL_TOL``, and times K1 at its shape.
+10. sharded  — ``PrefixRouter`` over a ``ShardedPageTable`` of 4
                simulated host groups, all on the card, at the reference's
                shard-soak settings (48 requests at 2x overcommit, a lazy
                grow at round 3, a host group lost at round 6), for linear
@@ -89,10 +114,11 @@ order, each phase printing one JSON line:
                share and the kernels that take its time.
 
 Launch counts are zeroed just before each serve run and read after its
-rebuild: K1 must have launched once per layer per token step, K2 never
-(the engine's attention is K1) and K3 once (the rebuild) for linear and
-robinhood, never for hopscotch; the linear run is the main path of the
-kernels line, ``launches_by_strategy`` holds all three.  The per-round check's
+rebuild: K1 must have launched once per paged layer per token step, K2
+never (the engine's attention is K1) and K3 once (the rebuild) for linear
+and robinhood, never for hopscotch; the linear run is the main path of the
+kernels line, ``launches_by_strategy`` holds all three and
+``launches_by_family`` the families'.  The per-round check's
 launches are counted apart (``check_launches``).  A wrapper counts one
 launch per call, though K1 and K2 each make two CUDA launches (the split
 kernel and the merge).  Any failure raises and the script exits
@@ -132,10 +158,32 @@ ARCH = "qwen2.5-32b"
 LAYERS = 8
 BATCH, MAX_LEN, PAGE_SIZE, MEGASTEP = 8, 1024, 16, 8
 N_REQUESTS = 16
+SERVE_TRAFFIC = dict(max_len=MAX_LEN, requests=N_REQUESTS,
+                     prompt_len=(64, 256), max_new=(64, 256))
 # pool size factor vs the worst-case plan: 0.15 gives 96 pages, which this
 # workload outgrows, so the scheduler grows the pool (at 0.5, 320 pages,
 # it never does)
 OVERCOMMIT = 0.15
+
+# the families phase: (run, arch, layers (0 = the config's), config
+# overrides, traffic).  gemma3's lanes decode past its 1024-token window and
+# 12 requests on 8 lanes re-seat 4 of them
+FAMILIES = [
+    ("moe", "granite-moe-1b-a400m", 0, {}, SERVE_TRAFFIC),
+    ("gemma3", "gemma3-12b", 12, {},
+     dict(max_len=1536, requests=12, prompt_len=(64, 256),
+          max_new=(900, 1100))),
+    ("vlm", "qwen2-vl-7b", LAYERS, {}, SERVE_TRAFFIC),
+    ("int8", ARCH, LAYERS, {"kv_cache_dtype": "int8"}, SERVE_TRAFFIC),
+]
+# gemma3's decode logits past the window against ``lm.forward`` of the same
+# tokens, ||decode - forward|| / ||forward||: the two compute each token's
+# q/k/v in bf16 through matrix products of other shapes (one token against
+# the whole sequence), whose last-bit differences 12 bf16 layers carry to
+# the logits; a wrong ring slot or mask moves them by O(1)
+FORWARD_REL_TOL = 5e-2
+# the forward check's lane: the first one this many tokens past the window
+WINDOW_MARGIN = 64
 
 # the strategies phase: the 2^20-cell tables at load 0.9 and their churn
 # rounds (CHURN_KEYS deleted and as many inserted a round, 1/64 of the
@@ -155,10 +203,10 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def pool_pages() -> int:
-    """The serve phase's starting pool: the worst-case plan times
+def pool_pages(max_len: int = MAX_LEN) -> int:
+    """A serve run's starting pool: the worst-case plan times
     ``OVERCOMMIT``."""
-    maxP = -(-MAX_LEN // PAGE_SIZE)
+    maxP = -(-max_len // PAGE_SIZE)
     return max(maxP, int((int(BATCH * maxP * 1.25) + 1) * OVERCOMMIT))
 
 
@@ -859,23 +907,34 @@ def phase_strategies(errs, linear_fill) -> dict:
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path.
 
-def make_batcher(cfg, params, n_pages):
+def make_batcher(cfg, params, n_pages, traffic=SERVE_TRAFFIC):
     from repro_torch.launch.serve import ContinuousBatcher
     from repro_torch.serving.sched import Scheduler, synthetic_workload
-    sched = Scheduler(slots=BATCH, page_size=PAGE_SIZE, max_len=MAX_LEN,
+    max_len = traffic["max_len"]
+    sched = Scheduler(slots=BATCH, page_size=PAGE_SIZE, max_len=max_len,
                       megastep_k=MEGASTEP)
-    srv = ContinuousBatcher(cfg, params, batch=BATCH, max_len=MAX_LEN,
+    srv = ContinuousBatcher(cfg, params, batch=BATCH, max_len=max_len,
                             page_size=PAGE_SIZE, megastep_k=MEGASTEP,
                             verify_block_table=True, scheduler=sched,
                             n_pages=n_pages, auto_refill=False,
                             seed=SEED, device=DEV)
     sched.submit_many(synthetic_workload(
-        N_REQUESTS, vocab_size=cfg.vocab_size, max_len=MAX_LEN, seed=SEED,
-        prompt_len=(64, 256), max_new=(64, 256)))
+        traffic["requests"], vocab_size=cfg.vocab_size, max_len=max_len,
+        seed=SEED, prompt_len=traffic["prompt_len"],
+        max_new=traffic["max_new"]))
     return srv
 
 
-def midrun_logits(cfg, params, state, tokens):
+def step_args(cfg, state, tokens):
+    """A serve step's arguments after the parameters: the vlm family's
+    M-RoPE streams are the position on all three, as in the megastep."""
+    pos = state["pos"]
+    if cfg.family == "vlm":
+        return (state, tokens, pos, pos[None, :, None].expand(3, -1, 1))
+    return (state, tokens, pos)
+
+
+def midrun_logits(cfg, params, state, tokens, max_len=MAX_LEN, run=None):
     """One fused (K1) and one plain (``attend_local``) serve step on clones
     of the same mid-run state: the model path end to end, over the live
     lanes, held to ``LOGITS_REL_TOL``."""
@@ -884,9 +943,9 @@ def midrun_logits(cfg, params, state, tokens):
     out = []
     for fused in (True, False):
         c = dataclasses.replace(cfg, fused_kernel=fused)
-        step = EG.make_serve_step(c, S_max=MAX_LEN, page_size=PAGE_SIZE)
+        step = EG.make_serve_step(c, S_max=max_len, page_size=PAGE_SIZE)
         st = EG.clone_state(state)
-        logits, _ = step(params, st, tokens, st["pos"])
+        logits, _ = step(params, *step_args(cfg, st, tokens))
         out.append(logits)
     live = state["active"] & ~state["aborted"]
     a, b = out[0][live].float(), out[1][live].float()
@@ -894,30 +953,43 @@ def midrun_logits(cfg, params, state, tokens):
     rel = float((a - b).norm() / b.norm())
     top2 = b.topk(2, dim=-1).values
     argmax_eq = a.argmax(-1) == b.argmax(-1)
-    emit("midrun_logits", lanes=int(live.sum()),
-         positions=state["pos"][live].tolist(), rel_err=rel,
-         tolerance=LOGITS_REL_TOL, max_abs_diff=float(diff.max()),
-         max_abs_logit=float(b.abs().max()),
-         argmax_agree=int(argmax_eq.sum()),
-         plain_top2_gap=(top2[:, 0] - top2[:, 1]).tolist())
+    res = dict(lanes=int(live.sum()),
+               positions=state["pos"][live].tolist(), rel_err=rel,
+               tolerance=LOGITS_REL_TOL, max_abs_diff=float(diff.max()),
+               max_abs_logit=float(b.abs().max()),
+               argmax_agree=int(argmax_eq.sum()),
+               plain_top2_gap=(top2[:, 0] - top2[:, 1]).tolist())
+    if run is None:
+        emit("midrun_logits", **res)
     if not rel <= LOGITS_REL_TOL:
-        raise AssertionError(f"fused and plain serve steps' logits differ: "
-                             f"relative error {rel} > {LOGITS_REL_TOL}")
+        raise AssertionError(f"{run or ARCH}: fused and plain serve steps' "
+                             f"logits differ: relative error {rel} > "
+                             f"{LOGITS_REL_TOL}")
+    return res
 
 
-def live_two_dispatch_check(state, gen):
+def first_layer(state):
+    """The first paged layer's pools and (int8) scales of a serve state."""
+    pk, pv = state["pools"].k[0], state["pools"].v[0]
+    sc = None
+    if "pool_scales" in state:
+        sc = (state["pool_scales"].k[0], state["pool_scales"].v[0])
+    return pk, pv, sc
+
+
+def live_two_dispatch_check(state, gen, G=6, q_dtype=None):
     """K1 == (slots view, then K2) bit for bit on the live serve state's
-    first layer, with a random query."""
+    first paged layer, with a random query of G heads a kv head."""
     import torch
     from repro_torch.kernels.fused_decode import (fused_decode_kernel,
                                                   fused_decode_ref)
-    pk, pv = state["pools"].k[0], state["pools"].v[0]
+    pk, pv, sc = first_layer(state)
     KH, D = pk.shape[2], pk.shape[3]
-    q = torch.randn((BATCH, KH * 6, D), generator=gen,
-                    device=DEV).to(pk.dtype)
+    q = torch.randn((BATCH, KH * G, D), generator=gen,
+                    device=DEV).to(q_dtype or pk.dtype)
     bt, pos = state["block_table"], state["pos"]
-    if not torch.equal(fused_decode_kernel(q, pk, pv, bt, pos),
-                       fused_decode_ref(q, pk, pv, bt, pos)):
+    if not torch.equal(fused_decode_kernel(q, pk, pv, bt, pos, scales=sc),
+                       fused_decode_ref(q, pk, pv, bt, pos, scales=sc)):
         raise AssertionError("live state: K1 != K2 composition")
 
 
@@ -930,20 +1002,36 @@ def tables_equal(a, b) -> bool:
             and torch.equal(a["block_table"], b["block_table"]))
 
 
-def phase_serve(cfg, params, checks):
+def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
     """Serves the workload under ``cfg.probe_strategy``, the fused run in
-    lockstep with the plain one.  Returns the state after round 3, the
-    state (and next tokens) with the most live pages, and the number of
-    megasteps dispatched."""
+    lockstep with the plain one.  Returns a dict: the state after round 3
+    (``snap``), the state with the most live pages (``peak``, with its next
+    tokens and its lanes' stop lengths), the number of megasteps, the
+    megastep function, the run's numbers (``stats``) and, for a
+    local/global config, the first state with a lane ``WINDOW_MARGIN``
+    tokens past the window (``window``: the state, its next tokens, the
+    lane and the lane's tokens so far)."""
     import numpy as np
     import torch
     from repro_torch.device import SYNC_STATS
     from repro_torch.kernels.fused_decode import fused_decode_kernel
     from repro_torch.serving import engine as EG
-    n_pages = pool_pages()
-    fused = make_batcher(cfg, params, n_pages)
+    n_pages = pool_pages(traffic["max_len"])
+    fused = make_batcher(cfg, params, n_pages, traffic)
     plain = make_batcher(dataclasses.replace(cfg, fused_kernel=False),
-                         params, n_pages)
+                         params, n_pages, traffic)
+    n_paged, _ = EG._n_attn_layers(cfg)
+    G = cfg.n_q // cfg.n_kv
+    W = cfg.local_window if cfg.pattern_local else 0
+    seated, reseated, window, max_pos = set(), 0, None, 0
+    reset = fused._reset_recurrent_state
+
+    def counted_reset(slots):
+        nonlocal reseated
+        reseated += sum(s in seated for s in slots)
+        seated.update(slots)
+        reset(slots)
+    fused._reset_recurrent_state = counted_reset
     tokens = torch.zeros((), dtype=torch.int64, device=DEV)
     megasteps = 0
     inner = fused.mega_fn
@@ -960,7 +1048,7 @@ def phase_serve(cfg, params, checks):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     syncs0 = SYNC_STATS["host_syncs"]
     fused_s, rounds, snap, peak, peak_live = 0.0, 0, None, None, -1
-    peak_tokens = None
+    peak_tokens = peak_stop = None
     torch.cuda.reset_peak_memory_stats()
     while not (fused.sched.drained and plain.sched.drained):
         if rounds >= 400:
@@ -978,11 +1066,26 @@ def phase_serve(cfg, params, checks):
             raise AssertionError(f"round {rounds}: fused and plain page "
                                  f"tables differ")
         with uncounted(checks):
-            live_two_dispatch_check(fused.state, gen)
+            live_two_dispatch_check(fused.state, gen, G,
+                                    cfg.activation_dtype())
         live = int(fused.state["table"].num_keys)
         if live > peak_live and bool(fused.state["active"].any()):
             peak, peak_live = EG.clone_state(fused.state), live
             peak_tokens = fused.tokens.clone()
+            peak_stop = fused.lane_stop.copy()
+        pos = fused.state["pos"] * fused.state["active"]
+        max_pos = max(max_pos, int(fused.state["pos"].max()))
+        if W and window is None and int(pos.max()) > W + WINDOW_MARGIN:
+            lane = int(pos.argmax())
+            req = fused.sched.lanes[lane]
+            seq = np.concatenate([req.prompt, np.asarray(
+                req.sampled, np.int32)])[:int(pos[lane]) + 1]
+            if (seq.size != int(pos[lane]) + 1
+                    or int(seq[-1]) != int(fused.tokens[lane, 0])):
+                raise AssertionError("the lane's tokens do not line up "
+                                     "with its position")
+            window = (EG.clone_state(fused.state), fused.tokens.clone(),
+                      lane, seq)
         if rounds == 3:
             if not bool(fused.state["active"].any()):
                 raise AssertionError("no live lane after round 3")
@@ -991,44 +1094,54 @@ def phase_serve(cfg, params, checks):
     st = fused.sched.summary()
     strategy = cfg.probe_strategy
     ps = plain.sched.summary()
-    if st["completed"] != N_REQUESTS or any(
+    n_req = traffic["requests"]
+    if st["completed"] != n_req or any(
             st[k] != ps[k] for k in ("completed", "aborts", "pool_grows",
                                      "preemptive_evictions")):
-        raise AssertionError(f"{strategy}: {st['completed']} of "
-                             f"{N_REQUESTS} requests completed, or the "
+        raise AssertionError(f"{cfg.name} {strategy}: {st['completed']} of "
+                             f"{n_req} requests completed, or the "
                              f"fused and plain runs' schedules differ")
     # robinhood keeps linear's exact no-ABORT bound; hopscotch's
     # displacement can fail below full (its aborts are printed)
     if strategy != "hopscotch" and st["aborts"]:
         raise AssertionError(f"{strategy}: aborts: {st['aborts']}")
-    if fused_decode_kernel.launches != LAYERS * MEGASTEP * megasteps:
+    if fused_decode_kernel.launches != n_paged * MEGASTEP * megasteps:
         raise AssertionError(
             f"K1 launched {fused_decode_kernel.launches} times on the serve "
-            f"path, not once per layer per token step "
-            f"({LAYERS} x {MEGASTEP} x {megasteps} megasteps)")
+            f"path, not once per paged layer per token step "
+            f"({n_paged} x {MEGASTEP} x {megasteps} megasteps)")
     same = total = 0
     pl = {r.req_id: r for r in plain.sched.finished}
     for r in fused.sched.finished:
         a, b = np.asarray(r.sampled), np.asarray(pl[r.req_id].sampled)
         total += a.size
         same += int((a == b).sum())
-    emit("serve", strategy=strategy, arch=ARCH, layers=LAYERS,
-         d_model=cfg.d_model,
-         n_q=cfg.n_q, n_kv=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-         batch=BATCH, max_len=MAX_LEN, page_size=PAGE_SIZE,
-         megastep=MEGASTEP, n_pages_start=n_pages,
-         n_pages_end=int(fused.state["pools"].k.shape[1]), rounds=rounds,
-         completed=st["completed"], aborts=st["aborts"],
-         pool_grows=st["pool_grows"], megasteps=megasteps,
-         token_steps=n_tok,
-         generated=sum(len(r.sampled) for r in fused.sched.finished),
-         seconds=fused_s, tokens_per_s=n_tok / fused_s,
-         host_syncs_per_token=(SYNC_STATS["host_syncs"] - syncs0) / n_tok,
-         k1_launches=fused_decode_kernel.launches,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-         tables_equal_every_round=True,
-         token_agreement=same / max(total, 1))
-    return snap, peak, peak_tokens, megasteps
+    stats = dict(
+        strategy=strategy, arch=cfg.name, layers=cfg.num_layers,
+        paged_layers=n_paged, d_model=cfg.d_model,
+        n_q=cfg.n_q, n_kv=cfg.n_kv, head_dim=cfg.hd, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, kv_cache_dtype=cfg.kv_cache_dtype,
+        batch=BATCH, max_len=traffic["max_len"], page_size=PAGE_SIZE,
+        megastep=MEGASTEP, requests=n_req, n_pages_start=n_pages,
+        n_pages_end=int(fused.state["pools"].k.shape[1]), rounds=rounds,
+        completed=st["completed"], aborts=st["aborts"],
+        pool_grows=st["pool_grows"],
+        preemptive_evictions=st["preemptive_evictions"],
+        megasteps=megasteps, token_steps=n_tok,
+        generated=sum(len(r.sampled) for r in fused.sched.finished),
+        seconds=fused_s, tokens_per_s=n_tok / fused_s,
+        batch_steps_per_s=megasteps * MEGASTEP / fused_s,
+        host_syncs_per_token=(SYNC_STATS["host_syncs"] - syncs0) / n_tok,
+        k1_launches=fused_decode_kernel.launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        tables_equal_every_round=True, k1_eq_k2_every_round=True,
+        token_agreement=same / max(total, 1), max_pos=max_pos,
+        fallback_report=EG.fallback_report(cfg))
+    if W:
+        stats.update(window=W, reseated_lanes=reseated)
+    return dict(snap=snap, peak=peak, peak_tokens=peak_tokens,
+                peak_stop=peak_stop, megasteps=megasteps, mega=inner,
+                window=window, stats=stats)
 
 
 def phase_rebuild(snap, cfg):
@@ -1150,9 +1263,10 @@ def phase_sharded() -> None:
 # ---------------------------------------------------------------------------
 # Phase 6: the kernels at the main path's shapes.
 
-def sdpa_ms(q, pk, pv, bt, pos, PS):
+def sdpa_ms(q, pk, pv, bt, pos, PS, scales=None):
     """One ``scaled_dot_product_attention`` call over the same KV gathered
-    contiguously per sequence (the gather is not timed)."""
+    contiguously per sequence (int8 pools dequantized to q's dtype; the
+    gather is not timed)."""
     import torch
     import torch.nn.functional as F
     B, QH, D = q.shape
@@ -1160,8 +1274,14 @@ def sdpa_ms(q, pk, pv, bt, pos, PS):
     S = int(pos.max()) + 1
     MPs = -(-S // PS)
     rows = bt[:, :MPs].clamp_min(0).long()
-    k = pk[rows].reshape(B, MPs * PS, KH, D)[:, :S]
-    v = pv[rows].reshape(B, MPs * PS, KH, D)[:, :S]
+
+    def gather(pool, sc):
+        x = pool[rows]
+        if sc is not None:
+            x = (x.float() * sc[rows].float()[..., None]).to(q.dtype)
+        return x.reshape(B, MPs * PS, KH, D)[:, :S]
+    k = gather(pk, None if scales is None else scales[0])
+    v = gather(pv, None if scales is None else scales[1])
     k = k.permute(0, 2, 1, 3).repeat_interleave(QH // KH, dim=1)
     v = v.permute(0, 2, 1, 3).repeat_interleave(QH // KH, dim=1)
     mask = (torch.arange(S, device=q.device)[None, :]
@@ -1171,11 +1291,11 @@ def sdpa_ms(q, pk, pv, bt, pos, PS):
         q4, k, v, attn_mask=mask), 100)
 
 
-def attention_bounds(q, pk, bt, pos):
+def attention_bounds(q, pk, bt, pos, scales=None):
     """K1's and K2's least times in ms, each with what bounds it: the
-    valid tokens' K and V read once, the table rows, q, the outputs
-    (K1's f32 partials; K2's output in q's dtype); operations: q.k and
-    p.v per valid token and query head, in f32."""
+    valid tokens' K and V read once (and their int8 scales), the table
+    rows, q, the outputs (K1's f32 partials; K2's output in q's dtype);
+    operations: q.k and p.v per valid token and query head, in f32."""
     import torch
     B, MP = bt.shape
     _, PS, KH, D = pk.shape
@@ -1185,6 +1305,8 @@ def attention_bounds(q, pk, bt, pos):
     ntok = int((torch.clamp(pos[:, None] + 1 - torch.arange(
         MP, device=DEV)[None, :] * PS, 0, PS) * live).sum())
     kv_bytes = ntok * KH * D * 2 * pk.element_size()
+    if scales is not None:
+        kv_bytes += ntok * KH * 2 * scales[0].element_size()
     flops = 4 * ntok * KH * G * D
     k1_bytes = (kv_bytes + B * MP * 4 + B * 4 + q.numel() * q.element_size()
                 + 4 * (B * KH * G * D + 2 * B * KH * G))
@@ -1228,6 +1350,155 @@ def long_context():
                    "bound_share": b1 / k1},
             "K2": {**shape, "ms": k2, "bound_ms": b2, "bound_by": by2,
                    "bound_share": b2 / k2}}
+
+
+def k1_at_state(cfg, state, run):
+    """K1 at a family's serve shape: the first paged layer of its state
+    with the most live pages and a random query of its head layout.
+    Held to its plain version (``PARTIALS_TOL``) and bit for bit to the
+    K2 composition; device ms from CUDA-graph replay beside the plain
+    version's, the bound, the bound share and the SDPA yardstick."""
+    import torch
+    from repro_torch.kernels.fused_decode import (fused_decode_kernel,
+                                                  fused_decode_plain,
+                                                  fused_decode_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        split_count
+    pk, pv, sc = first_layer(state)
+    bt, pos = state["block_table"], state["pos"]
+    B, MP = bt.shape
+    _, PS, KH, D = pk.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    q = torch.randn((B, cfg.n_q, D), generator=g, device=DEV).to(
+        cfg.activation_dtype())
+    part = fused_decode_kernel(q, pk, pv, bt, pos, scales=sc, partials=True)
+    ref = fused_decode_plain(q, pk, pv, bt, pos, scales=sc, partials=True)
+    err = max(close(a, b, PARTIALS_TOL) for a, b in zip(part, ref))
+    if not torch.equal(fused_decode_kernel(q, pk, pv, bt, pos, scales=sc),
+                       fused_decode_ref(q, pk, pv, bt, pos, scales=sc)):
+        raise AssertionError(f"{run}: K1 != K2 composition")
+    (bound, by), _ = attention_bounds(q, pk, bt, pos, sc)
+    ms = graph_ms(lambda: fused_decode_kernel(q, pk, pv, bt, pos, scales=sc,
+                                              partials=True), 100)
+    return {"run": run, "B": B, "KH": KH, "G": cfg.n_q // KH, "D": D,
+            "PS": PS, "MP": MP, "kv": str(pk.dtype).replace("torch.", ""),
+            "max_tokens": int(pos.max()) + 1,
+            "splits": split_count(B, KH, MP, PS,
+                                  torch.cuda.get_device_properties(
+                                      0).multi_processor_count),
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": graph_ms(lambda: fused_decode_plain(
+                q, pk, pv, bt, pos, scales=sc, partials=True), 10),
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "library_ms": sdpa_ms(q, pk, pv, bt, pos, PS, sc)}
+
+
+def megastep_bits(mega, params, state, tokens, stop):
+    """One megastep run twice from two clones of one state: the tokens and
+    every state leaf equal bit for bit."""
+    import torch
+    from repro_torch.serving import engine as EG
+    outs = []
+    for _ in range(2):
+        st = EG.clone_state(state)
+        outs.append(mega(params, st, tokens.clone(),
+                         torch.as_tensor(stop, device=DEV)))
+    (ta, sa), (tb, sb) = outs
+    leaves = [(k, x, y) for k in sa
+              for x, y in (zip(sa[k], sb[k]) if isinstance(sa[k], tuple)
+                           else [(sa[k], sb[k])])]
+    diff = [k for k, x, y in leaves if not torch.equal(x, y)]
+    if not torch.equal(ta, tb) or diff:
+        raise AssertionError(f"a megastep run twice from one state gave "
+                             f"other bits: tokens equal "
+                             f"{torch.equal(ta, tb)}, leaves {diff}")
+    return True
+
+
+def window_forward(cfg, params, window, max_len):
+    """One decode step (K1) from the state with a lane past the window,
+    that lane's logits against ``lm.forward`` of the lane's tokens on the
+    card, within ``FORWARD_REL_TOL``."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as EG
+    state, tokens, lane, seq = window
+    step = EG.make_serve_step(cfg, S_max=max_len, page_size=PAGE_SIZE)
+    st = EG.clone_state(state)
+    logits, _ = step(params, st, tokens, st["pos"])
+    ref, _ = lm.forward(cfg, params, torch.as_tensor(
+        seq[None], device=DEV).long(), last_only=True)
+    a, b = logits[lane].float(), ref[0, -1].float()
+    rel = float((a - b).norm() / b.norm())
+    res = dict(lane=lane, position=int(seq.size) - 1, rel_err=rel,
+               tolerance=FORWARD_REL_TOL,
+               argmax_agree=bool(a.argmax() == b.argmax()),
+               max_abs_diff=float((a - b).abs().max()))
+    if not rel <= FORWARD_REL_TOL:
+        raise AssertionError(f"decode past the window != lm.forward: "
+                             f"relative error {rel} > {FORWARD_REL_TOL}")
+    return res
+
+
+def phase_families(main_cfg, main_params, checks):
+    """The other attention families through the serve machinery (see the
+    module docstring, phase 10).  Returns K1's launches on each run's path
+    and K1's numbers at each run's shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as EG
+    wrappers = kernel_wrappers()
+    by_family, shapes = {}, []
+    for run, arch, layers, over, traffic in FAMILIES:
+        if arch == ARCH:
+            cfg, params = dataclasses.replace(main_cfg, **over), main_params
+        else:
+            cfg = dataclasses.replace(get_config(arch), fused_kernel=True,
+                                      **over)
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(
+                SEED), DEV)
+        t0 = time.perf_counter()
+        for w in wrappers.values():
+            w.launches = 0
+        res = phase_serve(cfg, params, checks, traffic)
+        phase_rebuild(res["snap"], cfg)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        n_paged, _ = EG._n_attn_layers(cfg)
+        expected = {"K1": n_paged * MEGASTEP * res["megasteps"], "K2": 0,
+                    "K3": 1}
+        if launches != expected:
+            raise AssertionError(f"{run} path launches {launches}, "
+                                 f"expected {expected}")
+        if res["stats"]["fallback_report"]["fused_kernel"] != "ok" or \
+                res["stats"]["aborts"]:
+            raise AssertionError(f"{run}: {res['stats']}")
+        by_family[run] = launches
+        out = dict(res["stats"])
+        with uncounted(checks):
+            out["midrun_logits"] = midrun_logits(
+                cfg, params, res["peak"], res["peak_tokens"],
+                traffic["max_len"], run)
+            out["megastep_bitwise_repeatable"] = megastep_bits(
+                res["mega"], params, res["peak"], res["peak_tokens"],
+                res["peak_stop"])
+            if cfg.pattern_local:
+                if res["window"] is None or out["max_pos"] <= \
+                        cfg.local_window or out["reseated_lanes"] < 1:
+                    raise AssertionError(
+                        f"{run}: no lane passed the window or none was "
+                        f"re-seated ({out['max_pos']}, "
+                        f"{out.get('reseated_lanes')})")
+                out["forward_past_window"] = window_forward(
+                    cfg, params, res["window"], traffic["max_len"])
+            shapes.append(k1_at_state(cfg, res["peak"], run))
+        out["phase_seconds"] = time.perf_counter() - t0
+        emit("families", run=run, launches=launches, **out)
+        del res, params
+        torch.cuda.empty_cache()
+    return by_family, shapes
 
 
 def kernel_entries(snap, rebuilt, errs, by_strategy, checks, probe_phase,
@@ -1393,7 +1664,11 @@ def main() -> int:
         c = dataclasses.replace(cfg, probe_strategy=strategy)
         for w in wrappers.values():
             w.launches = 0
-        snap_s, peak_s, tokens_s, megasteps = phase_serve(c, params, checks)
+        res = phase_serve(c, params, checks)
+        emit("serve", **res["stats"])
+        snap_s, peak_s, tokens_s = res["snap"], res["peak"], res["peak_tokens"]
+        megasteps = res["megasteps"]
+        del res
         rebuilt_s = phase_rebuild(snap_s, c)
         launches = {k: w.launches for k, w in wrappers.items()}
         # the engine's decode attention is K1; K2 is only what K1 is held
@@ -1412,6 +1687,13 @@ def main() -> int:
     midrun_logits(cfg, params, peak, peak_tokens)
     kernels = kernel_entries(peak, rebuilt, errs, by_strategy, checks,
                              probe_phase, robinhood_k3)
+    del peak, peak_tokens, rebuilt
+    by_family, k1_shapes = phase_families(cfg, params, checks)
+    kernels[0]["launches_by_family"] = {
+        run: n["K1"] for run, n in by_family.items()}
+    kernels[0]["family_shapes"] = k1_shapes
+    errs["K1"] = max([errs["K1"]] + [e["max_abs_err"] for e in k1_shapes])
+    kernels[0]["max_abs_err"] = errs["K1"]
     phase_sharded()
     phase_profile(cfg, params)
     emit("done", seconds=time.time() - t0)

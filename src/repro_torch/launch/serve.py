@@ -13,18 +13,19 @@ The driver is thin: it owns the engine state and the megastep dispatch
 4. reactive safety net: if any lane ABORTed, rebuild into a 2x pool;
 5. apply the scheduler's Plan: ``free_sequences`` + block-row
    invalidation for evicted lanes, ``rebuild_page_table`` for proactive
-   growth, fresh sequence ids at position 0 for admissions.
-
-The dense family keeps no per-lane recurrent state, so re-seating a lane
-needs no reset (the reference's ``_reset_recurrent_state`` covers SSM and
-ring-buffer state, ROADMAP items 15 and 17).
+   growth, fresh sequence ids at position 0 for admissions, whose lanes'
+   ring buffers (gemma3's local layers) are reset first
+   (``_reset_recurrent_state``).
 
 Usage (GPU, qwen2.5-32b at full width, depth cut to 8 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       --layers 8 --fused-kernel --batch 8 --max-len 1024 --page-size 16 \\
       --megastep 8 --requests 16 --verify-block-table --fail-on-abort
 CPU smoke: add ``--smoke --device cpu``.  ``--probe-strategy
-{linear,robinhood,hopscotch}`` picks the allocator.
+{linear,robinhood,hopscotch}`` picks the allocator.  ``--arch`` takes the
+dense, moe (``granite-moe-1b-a400m``, ``qwen3-moe-235b-a22b``), vlm
+(``qwen2-vl-7b``) and gemma3 (``gemma3-12b``) configs; gemma3's
+``--layers`` must be a multiple of its 6-layer superblock.
 """
 from __future__ import annotations
 
@@ -208,6 +209,7 @@ class ContinuousBatcher:
             active = host_numpy(self.state["active"]).copy()
             aborted = host_numpy(self.state["aborted"]).copy()
             tokens = host_numpy(self.tokens).copy()
+            self._reset_recurrent_state([s for s, _ in plan.admissions])
             for slot, req in plan.admissions:
                 known = req.known_tokens()
                 self.lane_known[slot] = known
@@ -225,6 +227,23 @@ class ContinuousBatcher:
             self.state["aborted"] = self._t(aborted)
             self.state["pos"] = self._t(self.pos)
             self.tokens = self._t(tokens)
+
+    def _reset_recurrent_state(self, slots):
+        """Reset the admitted lanes' per-lane state to what a fresh
+        ``make_decode_state`` holds: the ring buffers of gemma3's local
+        layers (K/V zero, ``ring_pos`` -1).  Paged KV needs nothing (freed
+        pages are unreachable once the block-table rows are invalidated),
+        but a ring keeps the previous occupant's entries, and any entry
+        with ``pos - W < ring_pos <= pos`` would pass the attention
+        mask."""
+        if "ring_k" not in self.state:
+            return
+        idx = self._t(slots, torch.int64)
+        self.state["ring_k"][:, idx] = 0
+        self.state["ring_v"][:, idx] = 0
+        ring_pos = self.state["ring_pos"].clone()
+        ring_pos[idx] = -1
+        self.state["ring_pos"] = ring_pos
 
     def _emit(self, event: str, **fields):
         if self.tracer is not None:
@@ -389,9 +408,13 @@ def main():
     if args.probe_strategy != cfg.probe_strategy:
         over["probe_strategy"] = args.probe_strategy
     cfg = dataclasses.replace(cfg, **over)
+    try:
+        model = get_model(cfg)
+    except ValueError as e:          # e.g. a depth cut off the superblocks
+        ap.error(str(e))
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = get_model(cfg).init(cfg, gen, device)
+    params = model.init(cfg, gen, device)
 
     maxP = -(-args.max_len // args.page_size)
     default_pool = int(args.batch * maxP * 1.25) + 1

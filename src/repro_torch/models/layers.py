@@ -1,16 +1,16 @@
-"""Shared model layers (PyTorch port of ``models/layers.py``, dense
-family): RoPE, GQA attention, SwiGLU MLP and the pre-norm block.
+"""Shared model layers (PyTorch port of ``models/layers.py``): RoPE and
+M-RoPE, GQA attention, SwiGLU MLP and the pre-norm block.
 
 ``flash_attention`` keeps the reference's signature and semantics (causal
 mask, sliding window, ``q_offset``, GQA in grouped form) and computes its
 forward in plain PyTorch, one query chunk at a time with one f32 softmax
-over the keys the chunk may attend to.  The training backward and
-M-RoPE belong to later slices (ROADMAP items 21 and 16).
+over the keys the chunk may attend to.  The training backward belongs to
+a later slice (ROADMAP item 21).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,15 +24,25 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # RoPE.
 
+def _rope_freq(half: int, theta: float, device):
+    """theta ** (-i / half) for i < half, in f32."""
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exps)
+
+
 def _rope_angles(positions, dims: int, theta: float):
     """positions [...] -> (sin, cos) [..., dims//2]."""
-    half = dims // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), exps)
+    freq = _rope_freq(dims // 2, theta, positions.device)
     ang = positions.float()[..., None] * freq
     return torch.sin(ang), torch.cos(ang)
+
+
+def _rotate(x, sin, cos):
+    """x [B,S,H,hd] rotated by sin/cos [B,S,1,hd/2], in f32."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x, positions, theta: float):
@@ -41,11 +51,25 @@ def apply_rope(x, positions, theta: float):
     if positions.dim() == 1:
         positions = positions[None].expand(B, S)
     sin, cos = _rope_angles(positions, hd, theta)       # [B,S,hd/2]
-    sin = sin[:, :, None, :]
-    cos = cos[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, sin[:, :, None, :], cos[:, :, None, :])
+
+
+def apply_mrope(x, positions3, sections: Tuple[int, ...], theta: float):
+    """Qwen2-VL M-RoPE: positions3 [3,B,S] (t,h,w); rotary dims split into
+    ``sections`` (sum == hd//2); section s rotates with positions3[s]."""
+    B, S, H, hd = x.shape
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    dev = x.device
+    freq = _rope_freq(half, theta, dev)
+    # per-dim section id -> choose position stream
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev))
+    pos_per_dim = positions3.float()[sec_id]             # [half,B,S]
+    ang = torch.einsum("dbs,d->bsd", pos_per_dim, freq)  # [B,S,half]
+    return _rotate(x, torch.sin(ang)[:, :, None, :],
+                   torch.cos(ang)[:, :, None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +154,17 @@ def attn_out_decode(p, o):
 
 
 def self_attention(p, x, positions, cfg, *, window: int = 0,
-                   causal: bool = True):
+                   mrope_positions=None, causal: bool = True):
     """Full-sequence self attention (prefill)."""
     q, k, v = attn_qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if mrope_positions is not None and cfg.mrope_sections:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
     return attn_out(p, o)
 
@@ -166,8 +196,9 @@ def block_init(cfg, dtype, generator, device, d_ff: Optional[int] = None):
             "ln2": nn.norm_init(cfg.d_model, dtype, device)}
 
 
-def block_apply(p, x, positions, cfg, *, window: int = 0):
+def block_apply(p, x, positions, cfg, *, window: int = 0,
+                mrope_positions=None):
     h = self_attention(p["attn"], nn.rmsnorm(p["ln1"], x), positions, cfg,
-                       window=window)
+                       window=window, mrope_positions=mrope_positions)
     x = x + h
     return x + mlp_apply(p["mlp"], nn.rmsnorm(p["ln2"], x))

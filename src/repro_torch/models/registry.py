@@ -1,20 +1,10 @@
-"""Family -> model module dispatch (only the dense family is ported)."""
+"""Family -> model module dispatch: the dense, moe and vlm families are
+served by ``models.lm``; the others raise naming their ROADMAP item."""
 from __future__ import annotations
 
 from repro_torch.models import lm
 
-_NOT_PORTED = {
-    "moe": "ROADMAP item 14",
-    "vlm": "ROADMAP item 16",
-    "ssm": "ROADMAP item 17",
-    "hybrid": "ROADMAP item 17",
-    "encdec": "ROADMAP item 18",
-}
-
 
 def get_model(cfg):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"yet: {_NOT_PORTED[cfg.family]}")
     lm.check_supported(cfg)
     return lm

@@ -263,16 +263,16 @@ def test_rebuild_per_strategy_matches_reference(params, strategy):
 
 
 def test_unported_paths_raise():
-    """Other families, int8 KV in the engine and a mesh raise and name
-    their ROADMAP item; fallback reasons keep the reference's strings."""
+    """The SSM, hybrid and encdec families and a mesh raise and name their
+    ROADMAP item; fallback reasons keep the reference's strings."""
     from repro_torch.configs import get_smoke_config as smoke
-    for arch, item in (("granite-moe-1b-a400m", "14"),
-                       ("mamba2-2.7b", "17"), ("gemma3-12b", "15")):
-        with pytest.raises(NotImplementedError, match=item):
+    for arch, item in (("mamba2-2.7b", "17"), ("zamba2-1.2b", "17"),
+                       ("seamless-m4t-large-v2", "18")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_model(smoke(arch))
-    _, tc = _cfgs(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="13"):
-        EG.make_decode_state(tc, 2, 16, page_size=4, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            EG.make_decode_state(smoke(arch), 2, 16, page_size=4,
+                                 device="cpu")
     _, tc = _cfgs()
     with pytest.raises(NotImplementedError, match="22"):
         EG.make_serve_step(tc, S_max=16, rules=object())
