@@ -80,10 +80,11 @@ order, each phase printing one JSON line:
                times, the probe phase's numbers and the robinhood table's;
 9. families  — phase ``serve``'s machinery (the fused run in lockstep with
                the plain one, tables equal and K1 == the K2 composition
-               every round, the rebuild with K3) for the other attention
+               every round, the rebuild with K3) for the other model
                families, random bf16 weights from the seed:
-               ``moe``    granite-moe-1b-a400m at full width and depth
-                          (24 layers, 32 experts top-8), the serve traffic;
+               ``moe``    granite-moe-1b-a400m at full width (32 experts
+                          top-8), depth cut 24 -> 12 for time, the serve
+                          traffic;
                           one megastep run twice from clones of one state
                           must give the same bits (the MoE combine has no
                           atomic add);
@@ -99,10 +100,38 @@ order, each phase printing one JSON line:
                           4 KV heads: G = 8 on K1, M-RoPE), 8 layers;
                ``int8``   the serve phase's qwen2.5-32b with
                           ``kv_cache_dtype="int8"``: int8 pools with bf16
-                          scales through the engine and K1.
-               Each also holds one K1 and one plain serve step on clones
-               of its state with the most live pages within
-               ``LOGITS_REL_TOL``, and times K1 at its shape.
+                          scales through the engine and K1;
+               ``zamba2`` zamba2-1.2b at full width (d_inner 4096, N 64;
+                          the shared attention block over its own pools
+                          after every 6 mamba layers, K1 at KH 32, G 1,
+                          D 64), depth cut 38 -> 14 for time (2 of the 6
+                          groups and the 2-layer tail), the serve
+                          traffic, so re-seated lanes have their mamba
+                          state reset; one lane's tokens near position
+                          200 replayed through the engine in float32 and
+                          held to the float32 ``hybrid.forward`` (the
+                          bf16 state's distance printed beside it);
+               ``mamba2`` mamba2-2.7b at full width (d 2560, d_inner 5120,
+                          80 heads of 64, N 128), depth cut 64 -> 16 for
+                          time; no page table, so no plain twin and no
+                          kernel launch; the serve traffic, the float32
+                          replay against ``ssm_lm.forward``, and the first
+                          request seated on a re-seated lane served again
+                          alone in a fresh batcher: the same tokens;
+               ``seamless`` seamless-m4t-large-v2 at full width and depth
+                          (24 + 24 layers, vocab 256206): the encoder
+                          prefill on seeded frame embeddings [8, 128,
+                          1024], then the megastep driven directly over
+                          the 8 lanes for 256 tokens (64-token prompts
+                          forced), the pool grown as the scheduler would;
+                          the self attention on the plain ``attend_local``
+                          as in the reference (no K1); lane 0's decode
+                          logits against ``encdec.forward``.
+               Each run with K1 on its path also holds one K1 and one
+               plain serve step on clones of its state with the most live
+               pages within ``LOGITS_REL_TOL`` and times K1 at its shape;
+               each runs a megastep twice from one state for the same
+               bits.
 10. sharded  — ``PrefixRouter`` over a ``ShardedPageTable`` of 4
                simulated host groups, all on the card, at the reference's
                shard-soak settings (48 requests at 2x overcommit, a lazy
@@ -118,10 +147,10 @@ rebuild: K1 must have launched once per paged layer per token step, K2
 never (the engine's attention is K1) and K3 once (the rebuild) for linear
 and robinhood, never for hopscotch; the linear run is the main path of the
 kernels line, ``launches_by_strategy`` holds all three and
-``launches_by_family`` the families'.  The per-round check's
-launches are counted apart (``check_launches``).  A wrapper counts one
-launch per call, though K1 and K2 each make two CUDA launches (the split
-kernel and the merge).  Any failure raises and the script exits
+``launches_by_family`` the families' (mamba2 launches none, seamless only
+K3's rebuild).  The per-round check's launches are counted apart
+(``check_launches``).  A wrapper counts one launch per call, though K1 and
+K2 each make two CUDA launches (the split kernel and the merge).  Any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero and
 prints no result.
@@ -167,14 +196,21 @@ OVERCOMMIT = 0.15
 
 # the families phase: (run, arch, layers (0 = the config's), config
 # overrides, traffic).  gemma3's lanes decode past its 1024-token window and
-# 12 requests on 8 lanes re-seat 4 of them
+# 12 requests on 8 lanes re-seat 4 of them.  Depth is cut for the script's
+# time limit: granite-moe 24 -> 12, zamba2 38 -> 14 (two groups of 6 mamba
+# layers, each followed by the shared block, and the 2-layer tail), mamba2
+# 64 -> 16
 FAMILIES = [
-    ("moe", "granite-moe-1b-a400m", 0, {}, SERVE_TRAFFIC),
+    ("moe", "granite-moe-1b-a400m", 12, {}, SERVE_TRAFFIC),
     ("gemma3", "gemma3-12b", 12, {},
      dict(max_len=1536, requests=12, prompt_len=(64, 256),
           max_new=(900, 1100))),
     ("vlm", "qwen2-vl-7b", LAYERS, {}, SERVE_TRAFFIC),
     ("int8", ARCH, LAYERS, {"kv_cache_dtype": "int8"}, SERVE_TRAFFIC),
+    ("zamba2", "zamba2-1.2b", 14, {}, SERVE_TRAFFIC),
+    ("mamba2", "mamba2-2.7b", 16, {}, SERVE_TRAFFIC),
+    ("seamless", "seamless-m4t-large-v2", 0, {},
+     dict(max_len=MAX_LEN, tokens=256, prompt=64)),
 ]
 # gemma3's decode logits past the window against ``lm.forward`` of the same
 # tokens, ||decode - forward|| / ||forward||: the two compute each token's
@@ -184,6 +220,19 @@ FAMILIES = [
 FORWARD_REL_TOL = 5e-2
 # the forward check's lane: the first one this many tokens past the window
 WINDOW_MARGIN = 64
+# the ssm and hybrid runs' forward check: the first lane past this
+# position, so that its at most 200 tokens make one SSD chunk (the
+# reference's forward needs the length to be a multiple of the chunk, 256,
+# when it is longer).  Their bf16 decode drifts from their bf16 forward by
+# more than FORWARD_REL_TOL in the reference too (zamba2 at 38 layers, d
+# 512: 0.13-0.43 over 200 tokens, on the CPU), so the check replays the
+# lane's tokens through the engine in float32 and holds that to the
+# float32 forward; the served bf16 state's distance is printed beside it
+SSM_FORWARD_POS = 192
+# the expected ``fallback_report()["fused_kernel"]`` of each family run
+FUSED_REPORT = {
+    "ssm": "attention-free SSM stack: no paged decode attention",
+    "encdec": "cross-attention decode state not wired to the fused kernel"}
 
 # the strategies phase: the 2^20-cell tables at load 0.9 and their churn
 # rounds (CHURN_KEYS deleted and as many inserted a round, 1/64 of the
@@ -199,8 +248,13 @@ SOAK = dict(hosts=4, requests=48, overcommit=2.0, grow_round=3,
             lose_round=6)
 
 
+T0 = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.time() - T0, 1),
+                      **fields}), flush=True)
 
 
 def pool_pages(max_len: int = MAX_LEN) -> int:
@@ -1004,34 +1058,38 @@ def tables_equal(a, b) -> bool:
 
 def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
     """Serves the workload under ``cfg.probe_strategy``, the fused run in
-    lockstep with the plain one.  Returns a dict: the state after round 3
-    (``snap``), the state with the most live pages (``peak``, with its next
-    tokens and its lanes' stop lengths), the number of megasteps, the
-    megastep function, the run's numbers (``stats``) and, for a
-    local/global config, the first state with a lane ``WINDOW_MARGIN``
-    tokens past the window (``window``: the state, its next tokens, the
-    lane and the lane's tokens so far)."""
+    lockstep with the plain one (a family without a page table, the ssm
+    one, has no plain twin: ``fused_kernel`` changes nothing there).
+    Returns a dict: the state after round 3 (``snap``), the state with the
+    most live pages (``peak``, with its next tokens and its lanes' stop
+    lengths; without a table, the most tokens), the number of megasteps,
+    the megastep function, the fused batcher (``srv``), the run's numbers
+    (``stats``) and, for a local/global config or an ssm or hybrid one,
+    the first state with a lane ``WINDOW_MARGIN`` tokens past the window
+    or past ``SSM_FORWARD_POS`` (``window``: the state, its next tokens,
+    the lane and the lane's tokens so far)."""
     import numpy as np
     import torch
     from repro_torch.device import SYNC_STATS
     from repro_torch.kernels.fused_decode import fused_decode_kernel
     from repro_torch.serving import engine as EG
     n_pages = pool_pages(traffic["max_len"])
-    fused = make_batcher(cfg, params, n_pages, traffic)
-    plain = make_batcher(dataclasses.replace(cfg, fused_kernel=False),
-                         params, n_pages, traffic)
     n_paged, _ = EG._n_attn_layers(cfg)
-    G = cfg.n_q // cfg.n_kv
+    fused = make_batcher(cfg, params, n_pages, traffic)
+    plain = (make_batcher(dataclasses.replace(cfg, fused_kernel=False),
+                          params, n_pages, traffic) if n_paged else None)
+    G = cfg.n_q // max(cfg.n_kv, 1)
     W = cfg.local_window if cfg.pattern_local else 0
-    seated, reseated, window, max_pos = set(), 0, None, 0
-    reset = fused._reset_recurrent_state
+    capture_at = W + WINDOW_MARGIN if W else (
+        SSM_FORWARD_POS if cfg.family in ("ssm", "hybrid") else None)
+    window, max_pos = None, 0
+    admissions = []           # (lane, req_id) in the order they were seated
+    apply_plan = fused._apply_plan
 
-    def counted_reset(slots):
-        nonlocal reseated
-        reseated += sum(s in seated for s in slots)
-        seated.update(slots)
-        reset(slots)
-    fused._reset_recurrent_state = counted_reset
+    def logged_apply(plan):
+        admissions.extend((s, r.req_id) for s, r in plan.admissions)
+        apply_plan(plan)
+    fused._apply_plan = logged_apply
     tokens = torch.zeros((), dtype=torch.int64, device=DEV)
     megasteps = 0
     inner = fused.mega_fn
@@ -1050,7 +1108,8 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
     fused_s, rounds, snap, peak, peak_live = 0.0, 0, None, None, -1
     peak_tokens = peak_stop = None
     torch.cuda.reset_peak_memory_stats()
-    while not (fused.sched.drained and plain.sched.drained):
+    while not (fused.sched.drained
+               and (plain is None or plain.sched.drained)):
         if rounds >= 400:
             raise AssertionError("serve did not drain in 400 rounds")
         torch.cuda.synchronize()
@@ -1058,24 +1117,26 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
         fused.step_round()
         torch.cuda.synchronize()
         fused_s += time.perf_counter() - t0
-        syncs = SYNC_STATS["host_syncs"]
-        plain.step_round()
-        SYNC_STATS["host_syncs"] = syncs      # count the fused run only
         rounds += 1
-        if not tables_equal(fused.state, plain.state):
-            raise AssertionError(f"round {rounds}: fused and plain page "
-                                 f"tables differ")
-        with uncounted(checks):
-            live_two_dispatch_check(fused.state, gen, G,
-                                    cfg.activation_dtype())
-        live = int(fused.state["table"].num_keys)
+        if plain is not None:
+            syncs = SYNC_STATS["host_syncs"]
+            plain.step_round()
+            SYNC_STATS["host_syncs"] = syncs      # count the fused run only
+            if not tables_equal(fused.state, plain.state):
+                raise AssertionError(f"round {rounds}: fused and plain "
+                                     f"page tables differ")
+            with uncounted(checks):
+                live_two_dispatch_check(fused.state, gen, G,
+                                        cfg.activation_dtype())
+        pos = fused.state["pos"] * fused.state["active"]
+        live = (int(fused.state["table"].num_keys) if n_paged
+                else int(pos.sum()))
         if live > peak_live and bool(fused.state["active"].any()):
             peak, peak_live = EG.clone_state(fused.state), live
             peak_tokens = fused.tokens.clone()
             peak_stop = fused.lane_stop.copy()
-        pos = fused.state["pos"] * fused.state["active"]
         max_pos = max(max_pos, int(fused.state["pos"].max()))
-        if W and window is None and int(pos.max()) > W + WINDOW_MARGIN:
+        if capture_at and window is None and int(pos.max()) > capture_at:
             lane = int(pos.argmax())
             req = fused.sched.lanes[lane]
             seq = np.concatenate([req.prompt, np.asarray(
@@ -1091,9 +1152,15 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
                 raise AssertionError("no live lane after round 3")
             snap = EG.clone_state(fused.state)
     n_tok = int(tokens)
+    lanes_seen = set()
+    reseated = []             # admissions to a lane that had held another
+    for lane, rid in admissions:
+        if lane in lanes_seen:
+            reseated.append((lane, rid))
+        lanes_seen.add(lane)
     st = fused.sched.summary()
     strategy = cfg.probe_strategy
-    ps = plain.sched.summary()
+    ps = plain.sched.summary() if plain is not None else st
     n_req = traffic["requests"]
     if st["completed"] != n_req or any(
             st[k] != ps[k] for k in ("completed", "aborts", "pool_grows",
@@ -1111,19 +1178,22 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
             f"path, not once per paged layer per token step "
             f"({n_paged} x {MEGASTEP} x {megasteps} megasteps)")
     same = total = 0
-    pl = {r.req_id: r for r in plain.sched.finished}
-    for r in fused.sched.finished:
-        a, b = np.asarray(r.sampled), np.asarray(pl[r.req_id].sampled)
-        total += a.size
-        same += int((a == b).sum())
+    if plain is not None:
+        pl = {r.req_id: r for r in plain.sched.finished}
+        for r in fused.sched.finished:
+            a, b = np.asarray(r.sampled), np.asarray(pl[r.req_id].sampled)
+            total += a.size
+            same += int((a == b).sum())
     stats = dict(
         strategy=strategy, arch=cfg.name, layers=cfg.num_layers,
         paged_layers=n_paged, d_model=cfg.d_model,
         n_q=cfg.n_q, n_kv=cfg.n_kv, head_dim=cfg.hd, d_ff=cfg.d_ff,
         vocab=cfg.vocab_size, kv_cache_dtype=cfg.kv_cache_dtype,
         batch=BATCH, max_len=traffic["max_len"], page_size=PAGE_SIZE,
-        megastep=MEGASTEP, requests=n_req, n_pages_start=n_pages,
-        n_pages_end=int(fused.state["pools"].k.shape[1]), rounds=rounds,
+        megastep=MEGASTEP, requests=n_req,
+        n_pages_start=n_pages if n_paged else None,
+        n_pages_end=(int(fused.state["pools"].k.shape[1]) if n_paged
+                     else None), rounds=rounds,
         completed=st["completed"], aborts=st["aborts"],
         pool_grows=st["pool_grows"],
         preemptive_evictions=st["preemptive_evictions"],
@@ -1134,14 +1204,20 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
         host_syncs_per_token=(SYNC_STATS["host_syncs"] - syncs0) / n_tok,
         k1_launches=fused_decode_kernel.launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        tables_equal_every_round=True, k1_eq_k2_every_round=True,
-        token_agreement=same / max(total, 1), max_pos=max_pos,
+        tables_equal_every_round=plain is not None,
+        k1_eq_k2_every_round=plain is not None,
+        token_agreement=same / total if total else None, max_pos=max_pos,
+        reseated_lanes=len(reseated),
         fallback_report=EG.fallback_report(cfg))
     if W:
-        stats.update(window=W, reseated_lanes=reseated)
+        stats.update(window=W)
+    if cfg.family in ("ssm", "hybrid"):
+        stats.update(d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads,
+                     ssm_state=cfg.ssm_state,
+                     shared_attn_every=cfg.shared_attn_every or None)
     return dict(snap=snap, peak=peak, peak_tokens=peak_tokens,
                 peak_stop=peak_stop, megasteps=megasteps, mega=inner,
-                window=window, stats=stats)
+                window=window, srv=fused, reseated=reseated, stats=stats)
 
 
 def phase_rebuild(snap, cfg):
@@ -1402,7 +1478,8 @@ def megastep_bits(mega, params, state, tokens, stop):
     for _ in range(2):
         st = EG.clone_state(state)
         outs.append(mega(params, st, tokens.clone(),
-                         torch.as_tensor(stop, device=DEV)))
+                         None if stop is None
+                         else torch.as_tensor(stop, device=DEV)))
     (ta, sa), (tb, sb) = outs
     leaves = [(k, x, y) for k in sa
               for x, y in (zip(sa[k], sb[k]) if isinstance(sa[k], tuple)
@@ -1415,38 +1492,208 @@ def megastep_bits(mega, params, state, tokens, stop):
     return True
 
 
-def window_forward(cfg, params, window, max_len):
-    """One decode step (K1) from the state with a lane past the window,
-    that lane's logits against ``lm.forward`` of the lane's tokens on the
-    card, within ``FORWARD_REL_TOL``."""
+def forward_check(cfg, logits, params, seq, check: bool = True, **kw):
+    """One lane's decode logits against the family's ``forward`` of the
+    lane's tokens ``seq`` on the card (``kw``: encdec's ``src_embeds``):
+    within ``FORWARD_REL_TOL`` and the same argmax, unless ``check`` is
+    False."""
     import torch
-    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
+    ref, _ = get_model(cfg).forward(cfg, params, torch.as_tensor(
+        seq[None], device=DEV).long(), last_only=True, **kw)
+    a, b = logits.float(), ref[0, -1].float()
+    rel = float((a - b).norm() / b.norm())
+    res = dict(position=int(seq.size) - 1, rel_err=rel,
+               tolerance=FORWARD_REL_TOL,
+               argmax_agree=bool(a.argmax() == b.argmax()),
+               max_abs_diff=float((a - b).abs().max()))
+    if check and not (rel <= FORWARD_REL_TOL and res["argmax_agree"]):
+        raise AssertionError(f"{cfg.name}: decode != forward: relative "
+                             f"error {rel} (tolerance {FORWARD_REL_TOL}), "
+                             f"argmax equal {res['argmax_agree']}")
+    return res
+
+
+def window_forward(cfg, params, window, max_len, check: bool = True):
+    """One decode step (K1 where the family runs it) from the captured
+    state (gemma3: a lane past the window; ssm and hybrid: a lane past
+    ``SSM_FORWARD_POS``), that lane's logits against the family's
+    ``forward`` of the lane's tokens (``forward_check``; with ``check``
+    False the distance is only measured)."""
     from repro_torch.serving import engine as EG
     state, tokens, lane, seq = window
     step = EG.make_serve_step(cfg, S_max=max_len, page_size=PAGE_SIZE)
     st = EG.clone_state(state)
     logits, _ = step(params, st, tokens, st["pos"])
-    ref, _ = lm.forward(cfg, params, torch.as_tensor(
-        seq[None], device=DEV).long(), last_only=True)
-    a, b = logits[lane].float(), ref[0, -1].float()
-    rel = float((a - b).norm() / b.norm())
-    res = dict(lane=lane, position=int(seq.size) - 1, rel_err=rel,
-               tolerance=FORWARD_REL_TOL,
-               argmax_agree=bool(a.argmax() == b.argmax()),
-               max_abs_diff=float((a - b).abs().max()))
-    if not rel <= FORWARD_REL_TOL:
-        raise AssertionError(f"decode past the window != lm.forward: "
-                             f"relative error {rel} > {FORWARD_REL_TOL}")
-    return res
+    return dict(lane=lane, **forward_check(cfg, logits[lane], params, seq,
+                                           check=check))
+
+
+def f32_replay_forward(cfg, params, window, max_len):
+    """The captured lane's tokens replayed one decode step at a time
+    through the engine in float32 (the same kernels: K1 on f32 pools for
+    a hybrid), on one lane from a fresh state; the last step's logits
+    against the float32 ``forward`` (``forward_check``)."""
+    import torch
+    from repro_torch.models import nn
+    from repro_torch.serving import engine as EG
+    _, _, lane, seq = window
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = nn.tree_map(lambda t: t.float(), params)
+    state, _ = EG.make_decode_state(c32, 1, S_max=max_len,
+                                    page_size=PAGE_SIZE, device=DEV)
+    step = EG.make_serve_step(c32, S_max=max_len, page_size=PAGE_SIZE)
+    toks = torch.as_tensor(seq, dtype=torch.int32, device=DEV)
+    for t in range(toks.shape[0]):
+        logits, state = step(p32, state, toks[t:t + 1][None],
+                             torch.full((1,), t, dtype=torch.int32,
+                                        device=DEV))
+    return dict(lane=lane, **forward_check(c32, logits[0], p32, seq))
+
+
+def reseated_alone(cfg, params, res, traffic):
+    """The first request seated on a lane that had held another, served
+    again alone in a fresh batcher of the same shape: its sampled tokens
+    must be equal (the card's counterpart of
+    ``test_readmission_resets_recurrent_state``: the reset leaves no trace
+    of the lane's previous occupant)."""
+    from repro_torch.launch.serve import ContinuousBatcher
+    from repro_torch.serving.sched import Request, Scheduler
+    if not res["reseated"]:
+        raise AssertionError(f"{cfg.name}: no lane was re-seated")
+    lane, rid = res["reseated"][0]
+    req = next(r for r in res["srv"].sched.finished if r.req_id == rid)
+    max_len = traffic["max_len"]
+    sched = Scheduler(slots=BATCH, page_size=PAGE_SIZE, max_len=max_len,
+                      megastep_k=MEGASTEP)
+    alone = ContinuousBatcher(cfg, params, batch=BATCH, max_len=max_len,
+                              page_size=PAGE_SIZE, megastep_k=MEGASTEP,
+                              scheduler=sched,
+                              n_pages=pool_pages(max_len),
+                              auto_refill=False, seed=SEED, device=DEV)
+    sched.submit(Request(req_id=rid, prompt=req.prompt,
+                         max_new_tokens=req.max_new_tokens))
+    if not alone.run_until_drained(max_rounds=400):
+        raise AssertionError(f"{cfg.name}: the lone request did not drain")
+    got = sched.finished[0].sampled
+    if got != req.sampled:
+        raise AssertionError(f"{cfg.name}: request {rid} on re-seated lane "
+                             f"{lane} sampled other tokens than alone in a "
+                             f"fresh batcher")
+    return dict(req_id=rid, lane=lane, prompt_len=int(req.prompt.size),
+                sampled=len(got), equal=True)
+
+
+def serve_encdec(cfg, params, traffic):
+    """seamless: the encoder prefill (``prepare_encdec_state``) on seeded
+    ``src_embeds`` [B, max_len/8, d], then the megastep driven directly
+    over the B lanes until each has taken ``traffic["tokens"]`` tokens,
+    the first ``traffic["prompt"]`` forced from seeded prompts.  The pool
+    starts at the serve phase's size, which these lanes outgrow: before a
+    megastep that could need more pages than the pool has free (a lane
+    takes at most one page in K < page-size tokens), the state is rebuilt
+    into twice the pool, as the scheduler's proactive growth does; an
+    abort fails the run.  Then one decode
+    step from the final state, lane 0's logits against ``encdec.forward``
+    of its tokens and its source.  Returns the run's numbers, the state
+    after megastep 3 (``snap``) and the final state (``peak``, with its
+    next tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.device import SYNC_STATS, host_numpy
+    from repro_torch.serving import engine as EG
+    max_len, n_tok, n_prompt = (traffic["max_len"], traffic["tokens"],
+                                traffic["prompt"])
+    B, K = BATCH, MEGASTEP
+    n_pages = pool_pages(max_len)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    src = torch.randn((B, max_len // 8, cfg.d_model), generator=g,
+                      device=DEV).to(cfg.activation_dtype())
+    prompts = np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (B, n_prompt)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = EG.make_decode_state(cfg, B, S_max=max_len,
+                                    page_size=PAGE_SIZE, n_pages=n_pages,
+                                    device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = EG.prepare_encdec_state(cfg, params, state, src)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    mega = EG.make_serve_megastep(cfg, S_max=max_len, K=K,
+                                  page_size=PAGE_SIZE)
+    seqs = [list(prompts[b, :1]) for b in range(B)]
+    tokens = torch.as_tensor(prompts[:, :1], device=DEV)
+    pos = np.zeros(B, np.int64)
+    megasteps, grows, snap, secs = 0, 0, None, 0.0
+    syncs0 = SYNC_STATS["host_syncs"]
+    while pos.min() < n_tok:
+        if megasteps >= 4 * n_tok // K:
+            raise AssertionError(f"{cfg.name}: the lanes did not reach "
+                                 f"{n_tok} tokens")
+        if EG.decode_headroom(state).free_cells < B:
+            m = state["pools"].k.shape[1]
+            state = EG.rebuild_page_table(state, n_pages=2 * m)
+            grows += 1
+        ahead = pos[:, None] + np.arange(1, K + 1)[None, :]
+        fmask = ahead < n_prompt
+        forced = np.where(fmask, prompts[np.arange(B)[:, None],
+                                         np.minimum(ahead, n_prompt - 1)], 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, state = mega(params, state, tokens, None,
+                           torch.as_tensor(forced.astype(np.int32),
+                                           device=DEV),
+                           torch.as_tensor(fmask, device=DEV))
+        p1 = host_numpy(state["pos"]).astype(np.int64)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        megasteps += 1
+        t = host_numpy(toks)
+        for b in range(B):
+            seqs[b].extend(int(x) for x in t[b, :p1[b] - pos[b]])
+        pos, tokens = p1, toks[:, -1:]
+        if bool(state["aborted"].any()):
+            raise AssertionError(f"{cfg.name}: a lane aborted")
+        if megasteps == 3:
+            snap = EG.clone_state(state)
+    token_steps = int(pos.sum())
+    if any(len(q) != int(p) + 1 for q, p in zip(seqs, pos)):
+        raise AssertionError(f"{cfg.name}: the lanes' tokens do not line up "
+                             f"with their positions")
+    stats = dict(
+        arch=cfg.name, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+        n_q=cfg.n_q, n_kv=cfg.n_kv, head_dim=cfg.hd, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, batch=B, max_len=max_len,
+        src_len=int(src.shape[1]), page_size=PAGE_SIZE, megastep=K,
+        prompt=n_prompt, tokens=n_tok, n_pages_start=n_pages,
+        n_pages_end=int(state["pools"].k.shape[1]), pool_grows=grows,
+        aborts=0,
+        megasteps=megasteps, token_steps=token_steps, encode_s=encode_s,
+        seconds=secs, tokens_per_s=token_steps / secs,
+        batch_steps_per_s=megasteps * K / secs,
+        host_syncs_per_token=(SYNC_STATS["host_syncs"] - syncs0)
+        / token_steps,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        max_pos=int(pos.max()), fallback_report=EG.fallback_report(cfg))
+    step = EG.make_serve_step(cfg, S_max=max_len, page_size=PAGE_SIZE)
+    logits, _ = step(params, EG.clone_state(state), tokens, state["pos"])
+    stats["forward"] = dict(lane=0, **forward_check(
+        cfg, logits[0], params, np.asarray(seqs[0], np.int32),
+        src_embeds=src[:1]))
+    return dict(snap=snap, peak=state, peak_tokens=tokens,
+                peak_stop=None, megasteps=megasteps, mega=mega,
+                stats=stats)
 
 
 def phase_families(main_cfg, main_params, checks):
-    """The other attention families through the serve machinery (see the
-    module docstring, phase 10).  Returns K1's launches on each run's path
-    and K1's numbers at each run's shape."""
+    """The other model families through the serve machinery (see the
+    module docstring, phase 9).  Returns K1's launches on each run's path
+    and K1's numbers at each paged run's shape."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
     from repro_torch.serving import engine as EG
     wrappers = kernel_wrappers()
     by_family, shapes = {}, []
@@ -1458,29 +1705,38 @@ def phase_families(main_cfg, main_params, checks):
                                       **over)
             if layers:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
-            params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(
-                SEED), DEV)
+            params = get_model(cfg).init(
+                cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
         t0 = time.perf_counter()
         for w in wrappers.values():
             w.launches = 0
-        res = phase_serve(cfg, params, checks, traffic)
-        phase_rebuild(res["snap"], cfg)
-        launches = {k: w.launches for k, w in wrappers.items()}
+        if cfg.family == "encdec":
+            res = serve_encdec(cfg, params, traffic)
+        else:
+            res = phase_serve(cfg, params, checks, traffic)
         n_paged, _ = EG._n_attn_layers(cfg)
-        expected = {"K1": n_paged * MEGASTEP * res["megasteps"], "K2": 0,
-                    "K3": 1}
+        if n_paged:
+            phase_rebuild(res["snap"], cfg)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        # K1 runs every paged layer but encdec's (the reference's plain
+        # attend_local there); K3 serves the rebuild of a paged state
+        k1_layers = 0 if cfg.family == "encdec" else n_paged
+        expected = {"K1": k1_layers * MEGASTEP * res["megasteps"], "K2": 0,
+                    "K3": 1 if n_paged else 0}
         if launches != expected:
             raise AssertionError(f"{run} path launches {launches}, "
                                  f"expected {expected}")
-        if res["stats"]["fallback_report"]["fused_kernel"] != "ok" or \
-                res["stats"]["aborts"]:
+        report = res["stats"]["fallback_report"]["fused_kernel"]
+        if report != FUSED_REPORT.get(cfg.family, "ok") or \
+                res["stats"].get("aborts"):
             raise AssertionError(f"{run}: {res['stats']}")
         by_family[run] = launches
         out = dict(res["stats"])
         with uncounted(checks):
-            out["midrun_logits"] = midrun_logits(
-                cfg, params, res["peak"], res["peak_tokens"],
-                traffic["max_len"], run)
+            if k1_layers:
+                out["midrun_logits"] = midrun_logits(
+                    cfg, params, res["peak"], res["peak_tokens"],
+                    traffic["max_len"], run)
             out["megastep_bitwise_repeatable"] = megastep_bits(
                 res["mega"], params, res["peak"], res["peak_tokens"],
                 res["peak_stop"])
@@ -1493,7 +1749,21 @@ def phase_families(main_cfg, main_params, checks):
                         f"{out.get('reseated_lanes')})")
                 out["forward_past_window"] = window_forward(
                     cfg, params, res["window"], traffic["max_len"])
-            shapes.append(k1_at_state(cfg, res["peak"], run))
+            if cfg.family in ("ssm", "hybrid"):
+                if res["window"] is None or out["reseated_lanes"] < 1:
+                    raise AssertionError(f"{run}: no lane passed position "
+                                         f"{SSM_FORWARD_POS} or none was "
+                                         f"re-seated")
+                out["forward_bf16_measured"] = window_forward(
+                    cfg, params, res["window"], traffic["max_len"],
+                    check=False)
+                out["forward_f32"] = f32_replay_forward(
+                    cfg, params, res["window"], traffic["max_len"])
+            if cfg.family == "ssm":
+                out["reseated_alone"] = reseated_alone(cfg, params, res,
+                                                       traffic)
+            if k1_layers:
+                shapes.append(k1_at_state(cfg, res["peak"], run))
         out["phase_seconds"] = time.perf_counter() - t0
         emit("families", run=run, launches=launches, **out)
         del res, params

@@ -14,18 +14,28 @@ The driver is thin: it owns the engine state and the megastep dispatch
 5. apply the scheduler's Plan: ``free_sequences`` + block-row
    invalidation for evicted lanes, ``rebuild_page_table`` for proactive
    growth, fresh sequence ids at position 0 for admissions, whose lanes'
-   ring buffers (gemma3's local layers) are reset first
-   (``_reset_recurrent_state``).
+   mamba state (the ssm and hybrid families) and ring buffers (gemma3's
+   local layers) are reset first (``_reset_recurrent_state``).
+
+The ssm family's state has no page table: every table step (block-table
+checks, frees, grows, headroom, the trace's table health) is skipped for
+it, as in the reference.  The batcher never runs the encoder: an encdec
+state decodes over zero cross K/V unless the caller fills them
+(``engine.prepare_encdec_state``), as in the reference.
 
 Usage (GPU, qwen2.5-32b at full width, depth cut to 8 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       --layers 8 --fused-kernel --batch 8 --max-len 1024 --page-size 16 \\
       --megastep 8 --requests 16 --verify-block-table --fail-on-abort
 CPU smoke: add ``--smoke --device cpu``.  ``--probe-strategy
-{linear,robinhood,hopscotch}`` picks the allocator.  ``--arch`` takes the
-dense, moe (``granite-moe-1b-a400m``, ``qwen3-moe-235b-a22b``), vlm
-(``qwen2-vl-7b``) and gemma3 (``gemma3-12b``) configs; gemma3's
-``--layers`` must be a multiple of its 6-layer superblock.
+{linear,robinhood,hopscotch}`` picks the allocator.  ``--arch`` takes all
+ten configs: dense, moe (``granite-moe-1b-a400m``,
+``qwen3-moe-235b-a22b``), vlm (``qwen2-vl-7b``), gemma3 (``gemma3-12b``),
+ssm (``mamba2-2.7b``), hybrid (``zamba2-1.2b``) and encdec
+(``seamless-m4t-large-v2``).  gemma3's ``--layers`` must be a multiple of
+its 6-layer superblock; zamba2's keeps the reference's grouping
+(``layers // shared_attn_every`` shared-block invocations, then the
+remaining mamba layers) and needs at least one group.
 """
 from __future__ import annotations
 
@@ -120,6 +130,8 @@ class ContinuousBatcher:
                 + self.sched.stats.reactive_rebuilds)
 
     def table_stats(self):
+        if "table" not in self.state:
+            return None
         return self.pt.stats(self.state["table"])
 
     # -- the round --------------------------------------------------------
@@ -179,7 +191,7 @@ class ContinuousBatcher:
     def _apply_plan(self, plan):
         st = self.sched
         evict = plan.evict_slots
-        if evict:
+        if evict and "table" in self.state:
             mask = np.zeros(self.B, bool)
             mask[evict] = True
             dmask = self._t(mask)
@@ -195,10 +207,11 @@ class ContinuousBatcher:
                     table_after=self.state["table"])
             self.state["block_table"] = self.pt.invalidate_block_rows(
                 self.state["block_table"], dmask)
+        if evict:
             active = host_numpy(self.state["active"]).copy()
             active[evict] = False
             self.state["active"] = self._t(active)
-        if plan.grow_to is not None:
+        if plan.grow_to is not None and "table" in self.state:
             # proactive Section 4.3 rebuild, between megasteps
             self.state = EG.rebuild_page_table(self.state,
                                                n_pages=plan.grow_to,
@@ -230,20 +243,27 @@ class ContinuousBatcher:
 
     def _reset_recurrent_state(self, slots):
         """Reset the admitted lanes' per-lane state to what a fresh
-        ``make_decode_state`` holds: the ring buffers of gemma3's local
-        layers (K/V zero, ``ring_pos`` -1).  Paged KV needs nothing (freed
-        pages are unreachable once the block-table rows are invalidated),
-        but a ring keeps the previous occupant's entries, and any entry
-        with ``pos - W < ring_pos <= pos`` would pass the attention
-        mask."""
-        if "ring_k" not in self.state:
-            return
+        ``make_decode_state`` holds: the mamba state (``h`` and the conv
+        tails, zeroed on their batch dim 1) and the ring buffers of
+        gemma3's local layers (K/V zero, ``ring_pos`` -1).  Paged KV needs
+        nothing (freed pages are unreachable once the block-table rows are
+        invalidated).  The mamba recurrence carries the previous
+        occupant's history into every later token, so without the reset
+        the re-seated request decodes wrongly.  A ring entry of the
+        previous occupant cannot pass the attention mask (slot s holds a
+        position q = s mod W, and every stale q is refused); the ring
+        reset keeps ``ring_pos`` equal to the reference's."""
         idx = self._t(slots, torch.int64)
-        self.state["ring_k"][:, idx] = 0
-        self.state["ring_v"][:, idx] = 0
-        ring_pos = self.state["ring_pos"].clone()
-        ring_pos[idx] = -1
-        self.state["ring_pos"] = ring_pos
+        if "ssm" in self.state:
+            st = self.state["ssm"]
+            self.state["ssm"] = type(st)(*(t.index_fill(1, idx, 0)
+                                           for t in st))
+        if "ring_k" in self.state:
+            self.state["ring_k"][:, idx] = 0
+            self.state["ring_v"][:, idx] = 0
+            ring_pos = self.state["ring_pos"].clone()
+            ring_pos[idx] = -1
+            self.state["ring_pos"] = ring_pos
 
     def _emit(self, event: str, **fields):
         if self.tracer is not None:
@@ -289,7 +309,7 @@ class ContinuousBatcher:
             self.sched.advance(self.K)
             self._absorb(host_numpy(toks), p0, self.pos)
             self._emit_decode(p0, self.pos)
-            if self.verify:
+            if self.verify and "table" in self.state:
                 self._check_block_table()
             n_ab = host_int(self.state["aborted"].sum())
             if n_ab:
@@ -309,20 +329,23 @@ class ContinuousBatcher:
             probed = ps["keys_probed"]
         self.metrics.inc("keys_probed", probed)
         ctr = self._read_counters()
-        self.metrics.set_gauge("live_pages", pool.live_pages)
-        self.metrics.set_gauge("tombstones", pool.tombstones)
-        self.metrics.set_gauge("free_cells", pool.free_cells)
-        self.metrics.set_gauge("occupancy", pool.occupancy)
+        if pool is not None:
+            self.metrics.set_gauge("live_pages", pool.live_pages)
+            self.metrics.set_gauge("tombstones", pool.tombstones)
+            self.metrics.set_gauge("free_cells", pool.free_cells)
+            self.metrics.set_gauge("occupancy", pool.occupancy)
         if self.tracer is not None:
-            t = self.state["table"]
-            n = int(self.state["pools"].k.shape[1])
-            live, tombs = int(t.num_keys), int(t.num_tombs)
-            health = {
-                "live": live, "tombs": tombs, "n_cells": n,
-                "free": n - live, "tomb_density": tombs / max(n, 1),
-                "occupancy": (live + tombs) / max(n, 1),
-                "probe_p99": PT.PageTable.probe_p99(t),
-                "migrated": 0, "migration_left": 0}
+            health = None
+            if "table" in self.state:
+                t = self.state["table"]
+                n = int(self.state["pools"].k.shape[1])
+                live, tombs = int(t.num_keys), int(t.num_tombs)
+                health = {
+                    "live": live, "tombs": tombs, "n_cells": n,
+                    "free": n - live, "tomb_density": tombs / max(n, 1),
+                    "occupancy": (live + tombs) / max(n, 1),
+                    "probe_p99": PT.PageTable.probe_p99(t),
+                    "migrated": 0, "migration_left": 0}
             self._emit("round", counters=ctr, health=health,
                        keys_probed=probed)
         self.sched.end_round(keys_probed=probed)
@@ -410,7 +433,8 @@ def main():
     cfg = dataclasses.replace(cfg, **over)
     try:
         model = get_model(cfg)
-    except ValueError as e:          # e.g. a depth cut off the superblocks
+    except ValueError as e:   # a depth off gemma3's superblocks, or a
+        # hybrid below one group
         ap.error(str(e))
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -445,12 +469,14 @@ def main():
         srv.decode_round(args.steps_per_round)
         st = srv.table_stats()
         s = sched.stats
+        occ = ("" if st is None else
+               f" live_pages={int(st.live_pages)} "
+               f"tombs={int(st.tombstones)} "
+               f"occupancy={float(st.occupancy):.3f}")
         print(f"[serve] round {r}: done={s.completed} "
               f"preempted={s.preemptive_evictions} queue={len(sched.queue)} "
               f"aborts={s.aborts} avoided={s.aborts_avoided} "
-              f"grows={s.pool_grows} live_pages={int(st.live_pages)} "
-              f"tombs={int(st.tombstones)} "
-              f"occupancy={float(st.occupancy):.3f}")
+              f"grows={s.pool_grows}{occ}")
         if fixed and sched.drained:
             break
 

@@ -5,7 +5,11 @@ example ``jax.tree.map(np.asarray, repro.models.lm.init(cfg, key)[0])``:
 stacked ``[L, ...]`` layers, ``lm_head`` when untied) and returns the same
 tree as torch tensors of ``cfg``'s dtype on ``device``, but for the leaves
 the reference keeps in float32 whatever the model dtype (``F32_LEAVES``:
-the MoE router), which stay float32.  The layouts are the same on both
+the MoE router; the mamba block's ``A_log``, ``dt_bias`` and ``D``), which
+stay float32.  Every family's tree goes through the same walk: the SSM
+and hybrid families' ``layers.mamba`` / ``layers.ln`` and ``shared``,
+encdec's ``encoder``, ``decoder`` (with ``cross`` and ``ln_cross``) and
+``enc_norm``.  The layouts are the same on both
 sides, so both compute the same function.  numpy only: nothing here
 imports JAX.
 """
@@ -19,7 +23,8 @@ import torch
 from repro_torch.device import resolve_device
 
 # (parent key, leaf key) of the leaves the reference draws in float32
-F32_LEAVES = {("moe", "router")}
+F32_LEAVES = {("moe", "router"), ("mamba", "A_log"), ("mamba", "dt_bias"),
+              ("mamba", "D")}
 
 
 def from_numpy_tree(tree, cfg, device=None) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
 """Shared model layers (PyTorch port of ``models/layers.py``): RoPE and
-M-RoPE, GQA attention, SwiGLU MLP and the pre-norm block.
+M-RoPE, GQA attention, encoder-decoder cross attention, SwiGLU MLP and
+the pre-norm block.
 
 ``flash_attention`` keeps the reference's signature and semantics (causal
 mask, sliding window, ``q_offset``, GQA in grouped form) and computes its
@@ -166,6 +167,22 @@ def self_attention(p, x, positions, cfg, *, window: int = 0,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
+    return attn_out(p, o)
+
+
+def cross_attn_init(cfg, dtype, generator, device):
+    return attn_init(cfg, dtype, generator, device)
+
+
+def cross_attention(p, x, memory):
+    """Encoder-decoder cross attention: q from ``x`` [B,S,d], k/v from
+    ``memory`` [B,S_src,d], no positions (the memory carries its own
+    encoding), every memory row attended (non-causal)."""
+    q = _proj(x, p["wq"])
+    k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    o = flash_attention(q, k, v, causal=False)
     return attn_out(p, o)
 
 

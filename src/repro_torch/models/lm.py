@@ -3,8 +3,8 @@ local:global attention pattern included (PyTorch port of ``models/lm.py``).
 
 gemma3 runs its layers as ``num_layers / (pattern_local + 1)``
 superblocks: ``pattern_local`` local layers with ``window=local_window``,
-then one global layer.  The SSM and hybrid families (ROADMAP item 17) and
-encdec (item 18) raise ``NotImplementedError``.
+then one global layer.  The ssm, hybrid and encdec families have modules
+of their own (``models/registry.py``).
 """
 from __future__ import annotations
 
@@ -18,19 +18,11 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import nn
 
 FAMILIES = ("dense", "moe", "vlm")
-_NOT_PORTED = {
-    "ssm": "ROADMAP item 17",
-    "hybrid": "ROADMAP item 17",
-    "encdec": "ROADMAP item 18",
-}
 
 
 def check_supported(cfg) -> None:
-    """The dense, moe and vlm families are ported; a local/global pattern
+    """The dense, moe and vlm families run here; a local/global pattern
     needs a whole number of superblocks (the reference asserts it)."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"yet: {_NOT_PORTED[cfg.family]}")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not served by "
                                   f"models.lm")

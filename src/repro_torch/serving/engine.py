@@ -1,6 +1,6 @@
-"""Decode engine (PyTorch port of ``serving/engine.py``: the dense, moe
-and vlm families with gemma3's local/global pattern and int8 KV pools, one
-device, no mesh).
+"""Decode engine (PyTorch port of ``serving/engine.py``: every model
+family — dense, moe and vlm with gemma3's local/global pattern, ssm,
+hybrid and encdec — with bf16 or int8 KV pools, one device, no mesh).
 
 Each decode token the engine (``_serve_step_impl``):
 1. allocates pages at page-boundary crossings through the hash table and
@@ -20,6 +20,16 @@ Each decode token the engine (``_serve_step_impl``):
 4. finishes each block (SwiGLU MLP, or the MoE for the moe family) and
    returns the logits.
 
+The other families follow the reference's branches: ``ssm`` (mamba2) has
+no page table and runs its mamba layers' one-token recurrence; ``hybrid``
+(zamba2) runs each group of mamba layers and then the shared attention
+block, each invocation over its own pool (K1 with ``fused_kernel``);
+``encdec`` (seamless) attends over its paged self-attention KV through the
+plain ``attend_local`` (the reference does not wire it to the fused
+kernel; ``fallback_report`` says so) and over the encoder's cross K/V
+(``prepare_encdec_state``).  A refused or inactive lane's mamba state is
+frozen (``_freeze_lanes``): the recurrence is not idempotent.
+
 ``make_serve_megastep`` runs K tokens with greedy sampling in one call (the
 reference's ``lax.scan`` becomes a Python loop), with the same teacher
 forcing (``forced``/``forced_mask``), abort latch and ``stop_len`` latch.
@@ -28,11 +38,10 @@ K1 or its plain version is chosen by the wrapper from the tensors' device.
 In place: the KV pools, their int8 scales and the ring buffers in the
 state are updated in place by every step (a step writes one token per
 lane; a functional copy would cost the whole pool).  Table, block table,
-``ring_pos`` and the other leaves are new tensors.  A caller that needs
-the state before a step keeps a ``clone_state`` of it.
+``ring_pos``, the mamba state and the other leaves are new tensors.  A
+caller that needs the state before a step keeps a ``clone_state`` of it.
 
-Not ported here: a mesh (``rules``; ROADMAP item 22), the SSM, hybrid and
-encdec families (items 17 and 18); each raises.
+Not ported here: a mesh (``rules``; ROADMAP item 22); it raises.
 """
 from __future__ import annotations
 
@@ -45,10 +54,14 @@ import torch
 from repro_torch.core import batched as BT
 from repro_torch.device import host_bool, resolve_device
 from repro_torch.kernels.fused_decode.fused import fused_decode_kernel
+from repro_torch.models import encdec
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import moe as MOE
 from repro_torch.models import nn
+from repro_torch.models import registry
+from repro_torch.models import ssm
 from repro_torch.obs import counters as OC
 from repro_torch.serving import page_table as PT
 from repro_torch.serving import paged
@@ -62,7 +75,7 @@ def _check_engine(cfg, rules) -> None:
     if rules is not None:
         raise NotImplementedError(
             "decode over a mesh (rules) is not ported: ROADMAP item 22")
-    lm.check_supported(cfg)
+    registry.check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +140,10 @@ def plan_pages(cfg, B: int, S_max: int, page_size: int, n_chips: int = 1):
 
 def _n_attn_layers(cfg) -> Tuple[int, int]:
     """(paged/global attention layers, ring/local attention layers)."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        return HY.num_shared_invocations(cfg), 0
     if cfg.pattern_local:
         g = cfg.pattern_local + 1
         return cfg.num_layers // g, cfg.num_layers - cfg.num_layers // g
@@ -139,8 +156,12 @@ def make_decode_state(cfg, B: int, S_max: int, *, rules=None,
                       device=None) -> Tuple[Dict[str, Any], None]:
     """Decode state for B lanes on ``device`` (the card unless ``"cpu"``).
     ``n_pages`` overrides the worst-case pool plan (``plan_pages``: 1.25x
-    of B·max_pages) to overcommit it.  Returns (state, None): the second
-    item stands where the reference returns sharding axes."""
+    of B·max_pages) to overcommit it.  The page table, block table and
+    pools exist only when the family has paged layers (not for ``ssm``);
+    the ssm and hybrid families carry their mamba state stacked
+    ``[L, B, ...]`` (``ssm``), encdec its cross K/V ``[L, B, S_src, kv,
+    hd]`` with ``S_src = max(S_max // 8, 1)``.  Returns (state, None): the
+    second item stands where the reference returns sharding axes."""
     _check_engine(cfg, rules)
     dev = resolve_device(device)
     if n_pages is None:
@@ -157,20 +178,31 @@ def make_decode_state(cfg, B: int, S_max: int, *, rules=None,
         "seq_ids": torch.arange(B, **i32),
         "active": torch.ones((B,), dtype=torch.bool, device=dev),
         "aborted": torch.zeros((B,), dtype=torch.bool, device=dev),
-        "table": _pt(cfg).create_table(n_pages, device=dev),
-        "block_table": torch.full((B, maxP), -1, **i32),
-        "pools": paged.make_pools(n_paged, n_pages, page_size, cfg.n_kv,
-                                  cfg.hd, torch.int8 if int8 else dtype,
-                                  device=dev),
     }
-    if int8:
-        state["pool_scales"] = paged.make_pool_scales(
-            n_paged, n_pages, page_size, cfg.n_kv, device=dev)
+    if n_paged:
+        state["table"] = _pt(cfg).create_table(n_pages, device=dev)
+        state["block_table"] = torch.full((B, maxP), -1, **i32)
+        state["pools"] = paged.make_pools(n_paged, n_pages, page_size,
+                                          cfg.n_kv, cfg.hd,
+                                          torch.int8 if int8 else dtype,
+                                          device=dev)
+        if int8:
+            state["pool_scales"] = paged.make_pool_scales(
+                n_paged, n_pages, page_size, cfg.n_kv, device=dev)
     if n_ring:
         shp = (n_ring, B, cfg.local_window, cfg.n_kv, cfg.hd)
         state["ring_k"] = torch.zeros(shp, dtype=dtype, device=dev)
         state["ring_v"] = torch.zeros(shp, dtype=dtype, device=dev)
         state["ring_pos"] = torch.full((B, cfg.local_window), -1, **i32)
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssm.init_mamba_state(cfg, B, dtype, dev)
+        state["ssm"] = ssm.MambaState(*(
+            t[None].repeat((cfg.num_layers,) + (1,) * t.dim())
+            for t in one))
+    if cfg.family == "encdec":
+        shp = (cfg.num_layers, B, max(S_max // 8, 1), cfg.n_kv, cfg.hd)
+        state["cross_k"] = torch.zeros(shp, dtype=dtype, device=dev)
+        state["cross_v"] = torch.zeros(shp, dtype=dtype, device=dev)
     if getattr(cfg, "telemetry", False):
         state["counters"] = OC.Counters.zeros(device=dev)
     return state, None
@@ -198,8 +230,8 @@ def rebuild_page_table(state: Dict[str, Any], *,
     with).  Rebuilds the block-table cache from the fresh table — through
     the probe kernel K3 when ``use_kernel`` and the strategy probes in
     linear order — and clears ``aborted``.  int8 scales move with their
-    pages; the ring leaves (per lane, not per page) stay as they are.
-    Returns a new state; the given one is left as it was."""
+    pages; the per-lane leaves (rings, mamba state, cross K/V) stay as
+    they are.  Returns a new state; the given one is left as it was."""
     table = state["table"]
     pt = PT.for_strategy(strategy)
     # hopscotch carries a meta bitmap, linear and robinhood none: rebuilding
@@ -437,25 +469,62 @@ def _mlp_or_moe(cfg, p, x):
     return L.mlp_apply(p["mlp"], x)
 
 
-def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
-                     S_max, page_size):
-    B = tokens.shape[0]
-    x = nn.embed_lookup(params["embed"], tokens)      # [B,1,d]
-    new_state = dict(state)
-    act = state["active"] & ~state["aborted"]
-    fused = _fused_kernel_ok(cfg)
+def _freeze_lanes(new, old, act):
+    """Per-lane freeze of refused or inactive lanes: the leaves are
+    ``[L, B, ...]`` stacked per-layer state.  A refused token must leave no
+    trace — the SSM recurrence is not idempotent under re-issue (unlike
+    the KV and ring writes, which rewrite the same slot with the same
+    value) — so the engine keeps such lanes' old rows."""
+    def sel(n, o):
+        return torch.where(act.reshape((1, -1) + (1,) * (n.dim() - 2)), n, o)
+    return type(new)(*(sel(n, o) for n, o in zip(new, old)))
 
-    table, write_slot, aborts, bt, lp = _page_ops(
-        cfg, state, positions, act, S_max=S_max, page_size=page_size,
-        fused=fused)
-    new_state["table"] = table
-    new_state["block_table"] = bt
-    pools, scales = state["pools"], state.get("pool_scales")
-    plan = paged.write_plan(write_slot, positions, 0, pools.k.shape[1],
-                            page_size)
-    # the layers in order: gemma3's local layers attend over their ring,
-    # every other layer over the paged KV (the reference's superblock scan
-    # in _gemma_layers visits them in the same order)
+
+# ---------------------------------------------------------------------------
+# Cross attention at decode (encdec): dense precomputed memory K/V.
+
+def _cross_attn_decode(cfg, x, cp, ck, cv):
+    """x [B,1,d]; one layer's cross K/V [B,S_src,kv,hd] -> [B,1,d]."""
+    B = x.shape[0]
+    q = L._proj(x[:, 0], cp["wq"])
+    if "bq" in cp:
+        q = q + cp["bq"]
+    n_kv, G = cfg.n_kv, cfg.n_q // cfg.n_kv
+    qg = q.reshape(B, n_kv, G, cfg.hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     ck.float()) / math.sqrt(cfg.hd)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    o = o.reshape(B, cfg.n_q, cfg.hd).to(x.dtype)
+    return L.attn_out_decode(cp, o)[:, None]
+
+
+def prepare_encdec_state(cfg, params, state, src_embeds, *, rules=None):
+    """Run the encoder and fill the decoder's cross K/V (the encoder-decoder
+    prefill).  src_embeds [B, S_src, d] (the stub audio frontend's frame
+    embeddings).  Returns a new state."""
+    _check_engine(cfg, rules)
+    memory = encdec.encode(cfg, params, src_embeds)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        cp = nn.layer_slice(params["decoder"], i)["cross"]
+        k, v = L._proj(memory, cp["wk"]), L._proj(memory, cp["wv"])
+        if "bk" in cp:
+            k, v = k + cp["bk"], v + cp["bv"]
+        ks.append(k)
+        vs.append(v)
+    state = dict(state)
+    state["cross_k"], state["cross_v"] = torch.stack(ks), torch.stack(vs)
+    return state
+
+
+def _attention_layers(cfg, params, state, x, positions, mrope, attn):
+    """The dense, moe and vlm families' layers in order: gemma3's local
+    layers attend over their ring, every other layer over the paged KV
+    (the reference's superblock scan in _gemma_layers visits them in the
+    same order).  ``attn(h, ap, j, mrope)`` is paged layer j's attention.
+    Returns (x, ring_pos' or None)."""
+    B = x.shape[0]
     n_paged = n_ring = 0
     for i in range(cfg.num_layers):
         lpp = nn.layer_slice(params["layers"], i)
@@ -466,21 +535,100 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
                                positions)
             n_ring += 1
         else:
-            j = n_paged
-            x = x + paged_attn_op(
-                cfg, h, lpp["attn"], pools.k[j], pools.v[j], lp, write_slot,
-                positions, page_size, mrope=mrope,
-                scales=None if scales is None else (scales.k[j], scales.v[j]),
-                bt=bt, fused=fused, plan=plan)
+            x = x + attn(h, lpp["attn"], n_paged, mrope)
             n_paged += 1
         x = x + _mlp_or_moe(cfg, lpp, nn.rmsnorm(lpp["ln2"], x))
-    if n_ring:
-        # every lane's slot takes this step's position, after all layers
-        W = state["ring_pos"].shape[1]
-        ring_pos = state["ring_pos"].clone()
-        ring_pos[torch.arange(B, device=positions.device),
-                 (positions % W).to(torch.int64)] = positions
-        new_state["ring_pos"] = ring_pos
+    if not n_ring:
+        return x, None
+    # every lane's slot takes this step's position, after all layers
+    W = state["ring_pos"].shape[1]
+    ring_pos = state["ring_pos"].clone()
+    ring_pos[torch.arange(B, device=positions.device),
+             (positions % W).to(torch.int64)] = positions
+    return x, ring_pos
+
+
+def _hybrid_layers(cfg, params, state, x, attn):
+    """zamba2: each group of ``shared_attn_every`` mamba layers, then the
+    shared block over its own pool (invocation g writes pool g), then the
+    trailing mamba layers.  Returns (x, the mamba state of every layer)."""
+    every = cfg.shared_attn_every
+    n_inv = HY.num_shared_invocations(cfg)
+    sp = params["shared"]
+    chunks = []
+    for g in range(n_inv):
+        x, s2 = HY.mamba_decode_chunk(cfg, params["layers"], state["ssm"],
+                                      x, g * every, (g + 1) * every)
+        chunks.append(s2)
+        x = x + attn(nn.rmsnorm(sp["ln1"], x), sp["attn"], g, None)
+        x = x + L.mlp_apply(sp["mlp"], nn.rmsnorm(sp["ln2"], x))
+    if cfg.num_layers > n_inv * every:
+        x, s2 = HY.mamba_decode_chunk(cfg, params["layers"], state["ssm"],
+                                      x, n_inv * every, cfg.num_layers)
+        chunks.append(s2)
+    return x, ssm.MambaState(*(torch.cat(ts) for ts in zip(*chunks)))
+
+
+def _encdec_layers(cfg, params, state, x, attn):
+    """seamless's decoder: paged causal self attention, cross attention
+    over the encoder's K/V, SwiGLU MLP."""
+    for i in range(cfg.num_layers):
+        lpp = nn.layer_slice(params["decoder"], i)
+        x = x + attn(nn.rmsnorm(lpp["ln1"], x), lpp["attn"], i, None)
+        x = x + _cross_attn_decode(cfg, nn.rmsnorm(lpp["ln_cross"], x),
+                                   lpp["cross"], state["cross_k"][i],
+                                   state["cross_v"][i])
+        x = x + L.mlp_apply(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
+    return x
+
+
+def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
+                     S_max, page_size):
+    B = tokens.shape[0]
+    x = nn.embed_lookup(params["embed"], tokens)      # [B,1,d]
+    new_state = dict(state)
+    act = state["active"] & ~state["aborted"]
+
+    if cfg.family == "ssm":
+        # attention-free: no page table, nothing refused
+        aborts = torch.zeros_like(act)
+        x, ssm2 = HY.mamba_decode_chunk(cfg, params["layers"], state["ssm"],
+                                        x, 0, cfg.num_layers)
+        new_state["ssm"] = _freeze_lanes(ssm2, state["ssm"], act)
+    else:
+        # encdec's self attention takes the plain attend_local, as in the
+        # reference (_fused_kernel_reason)
+        fused = _fused_kernel_ok(cfg)
+        table, write_slot, aborts, bt, lp = _page_ops(
+            cfg, state, positions, act, S_max=S_max, page_size=page_size,
+            fused=fused)
+        new_state["table"] = table
+        new_state["block_table"] = bt
+        pools, scales = state["pools"], state.get("pool_scales")
+        plan = paged.write_plan(write_slot, positions, 0, pools.k.shape[1],
+                                page_size)
+
+        def attn(h, ap, j, mrope_j):
+            return paged_attn_op(
+                cfg, h, ap, pools.k[j], pools.v[j], lp, write_slot,
+                positions, page_size, mrope=mrope_j,
+                scales=None if scales is None else (scales.k[j],
+                                                    scales.v[j]),
+                bt=bt, fused=fused, plan=plan)
+
+        if cfg.family == "hybrid":
+            x, ssm2 = _hybrid_layers(cfg, params, state, x, attn)
+            # a lane refused THIS step re-issues its token after the
+            # rebuild: its recurrent state must not advance either
+            new_state["ssm"] = _freeze_lanes(ssm2, state["ssm"],
+                                             act & ~aborts)
+        elif cfg.family == "encdec":
+            x = _encdec_layers(cfg, params, state, x, attn)
+        else:
+            x, ring_pos = _attention_layers(cfg, params, state, x,
+                                            positions, mrope, attn)
+            if ring_pos is not None:
+                new_state["ring_pos"] = ring_pos
 
     x = nn.rmsnorm(params["final_norm"], x)
     logits = lm._logits(cfg, params, x)
@@ -489,8 +637,9 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
     new_state["aborted"] = state["aborted"] | aborts
     new_state["pos"] = torch.where(act & ~aborts, positions + 1, positions)
     if "counters" in state:
+        # the ssm family has no table: only token and abort counts tick
         new_state["counters"] = OC.update_token_counters(
             state["counters"], act=act, aborts=aborts, positions=positions,
-            page_size=page_size, table_before=state["table"],
-            table_after=table)
+            page_size=page_size, table_before=state.get("table"),
+            table_after=new_state.get("table"))
     return logits[:, 0], new_state

@@ -183,7 +183,12 @@ def attend_local(q_all, pool_k_l, pool_v_l, lp: LocalPages, positions,
     l_p = p.sum(dim=-1)
     o_p = torch.einsum("ckgs,cskd->ckgd", p, v_loc.float())
 
-    # per-sequence lse merge (scatter-max then weighted adds), row B = trash
+    # per-sequence lse merge (scatter-max then weighted sums), row B =
+    # trash.  compact_local lists the pages sequence by sequence (the trash
+    # entries last), so each sequence's pages are one segment and
+    # segment_reduce sums them in index order, as index_add_ does on the
+    # CPU, with no atomics: index_add_ on CUDA floats adds in the order its
+    # atomics land, and a decode step would give other bits from run to run
     seq_i = lp.seq.to(torch.int64)
     m_seq = torch.full((B + 1,) + m_p.shape[1:], NEG_INF,
                        dtype=torch.float32, device=q_all.device)
@@ -191,11 +196,12 @@ def attend_local(q_all, pool_k_l, pool_v_l, lp: LocalPages, positions,
                           reduce="amax")
     w = torch.where(lp.valid[:, None, None], torch.exp(m_p - m_seq[seq_c]),
                     torch.zeros_like(m_p))
-    l_seq = torch.zeros((B + 1,) + l_p.shape[1:], dtype=torch.float32,
-                        device=q_all.device).index_add_(0, seq_i, l_p * w)
-    o_seq = torch.zeros((B + 1,) + o_p.shape[1:], dtype=torch.float32,
-                        device=q_all.device).index_add_(
-                            0, seq_i, o_p * w[..., None])
+    lengths = (seq_i[None, :] == torch.arange(
+        B + 1, device=q_all.device)[:, None]).sum(dim=1)
+    l_seq = torch.segment_reduce(l_p * w, "sum", lengths=lengths, axis=0,
+                                 unsafe=True)
+    o_seq = torch.segment_reduce(o_p * w[..., None], "sum", lengths=lengths,
+                                 axis=0, unsafe=True)
     return o_seq[:B], m_seq[:B], l_seq[:B]
 
 

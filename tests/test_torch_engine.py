@@ -263,23 +263,37 @@ def test_rebuild_per_strategy_matches_reference(params, strategy):
 
 
 def test_unported_paths_raise():
-    """The SSM, hybrid and encdec families and a mesh raise and name their
-    ROADMAP item; fallback reasons keep the reference's strings."""
+    """A mesh raises and names its ROADMAP item; every family is served
+    (the ssm, hybrid and encdec families since slice 6) and the fallback
+    reasons keep the reference's strings, the ssm and encdec ones
+    included.  A hybrid depth below one group of mamba layers is refused
+    (the reference's decode would find no page table)."""
+    from repro.configs import get_smoke_config as j_smoke_cfg
     from repro_torch.configs import get_smoke_config as smoke
-    for arch, item in (("mamba2-2.7b", "17"), ("zamba2-1.2b", "17"),
-                       ("seamless-m4t-large-v2", "18")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            get_model(smoke(arch))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            EG.make_decode_state(smoke(arch), 2, 16, page_size=4,
-                                 device="cpu")
     _, tc = _cfgs()
     with pytest.raises(NotImplementedError, match="22"):
         EG.make_serve_step(tc, S_max=16, rules=object())
+    with pytest.raises(NotImplementedError, match="22"):
+        EG.make_decode_state(tc, 2, 16, rules=object(), device="cpu")
     jc, _ = _cfgs()
     assert EG.fallback_report(tc) == JEG.fallback_report(jc)
     assert EG.fallback_report(dataclasses.replace(tc, fused_kernel=True)) \
         == JEG.fallback_report(dataclasses.replace(jc, fused_kernel=True))
+    for arch, module, reason in (
+            ("mamba2-2.7b", "ssm_lm",
+             "attention-free SSM stack: no paged decode attention"),
+            ("zamba2-1.2b", "hybrid", "ok"),
+            ("seamless-m4t-large-v2", "encdec",
+             "cross-attention decode state not wired to the fused kernel")):
+        t_cfg = dataclasses.replace(smoke(arch), fused_kernel=True)
+        j_cfg = dataclasses.replace(j_smoke_cfg(arch), fused_kernel=True)
+        assert get_model(t_cfg).__name__ == f"repro_torch.models.{module}"
+        EG.make_decode_state(t_cfg, 2, 16, page_size=4, device="cpu")
+        rep = EG.fallback_report(t_cfg)
+        assert rep == JEG.fallback_report(j_cfg)
+        assert rep["fused_kernel"] == reason
+    with pytest.raises(ValueError, match="below one group"):
+        get_model(dataclasses.replace(smoke("zamba2-1.2b"), num_layers=1))
 
 
 def test_counter_plane_matches_reference_and_changes_nothing(params):

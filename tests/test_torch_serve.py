@@ -4,7 +4,9 @@ Four requests, batch 2, max_len 24, K=4, block-table verification every
 round, on the dense smoke config in f32 with the reference's parameters
 converted, under each probe strategy (``cfg.probe_strategy``), and on the
 gemma3 (window 8: the rings wrap, and the re-seated lanes' rings are
-reset) and granite-moe smoke configs: the same
+reset), granite-moe and zamba2 (the re-seated lanes' mamba state is
+reset; within ``SSM_ATOL`` of the reference's every round) smoke configs:
+the same
 completions, the same sampled tokens, table and meta, and 0 aborts, and
 the port's JSONL trace passes ``tools/trace_report.py --check-invariants``
 and equals the reference's trace event for event (but for
@@ -23,7 +25,7 @@ import torch
 
 from repro.configs import get_smoke_config as j_smoke
 from repro.launch.serve import ContinuousBatcher as JBatcher
-from repro.models import lm as j_lm
+from repro.models.registry import get_model as j_get_model
 from repro.obs import Tracer as JTracer
 from repro.serving.sched import Scheduler as JScheduler
 from repro.serving.sched import synthetic_workload as j_workload
@@ -38,6 +40,10 @@ from repro_torch.serving.sched import Scheduler, synthetic_workload
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(__file__)
+# zamba2's mamba state (f32 h and the conv tails) against the reference's
+# after every round: 1e-5 absolute plus 1e-5 of the value (h grows to
+# about 10, where one f32 ulp is 1e-6)
+SSM_ATOL = 1e-5
 
 
 def _trace_tool():
@@ -56,13 +62,15 @@ def _drop_probes(evs):
     "fused,strategy,arch",
     [(False, "linear", "qwen2.5-32b"), (True, "linear", "qwen2.5-32b"),
      (True, "robinhood", "qwen2.5-32b"), (True, "hopscotch", "qwen2.5-32b"),
-     (True, "linear", "gemma3-12b"), (True, "linear", "granite-moe-1b-a400m")],
-    ids=["False", "True", "robinhood", "hopscotch", "gemma3", "granite"])
+     (True, "linear", "gemma3-12b"), (True, "linear", "granite-moe-1b-a400m"),
+     (True, "linear", "zamba2-1.2b")],
+    ids=["False", "True", "robinhood", "hopscotch", "gemma3", "granite",
+         "zamba2"])
 def test_batcher_matches_reference(tmp_path, fused, strategy, arch):
     kw = dict(dtype="float32", fused_kernel=fused, probe_strategy=strategy)
     jc = dataclasses.replace(j_smoke(arch), **kw)
     tc = dataclasses.replace(get_smoke_config(arch), **kw)
-    jp, _ = j_lm.init(jc, jax.random.PRNGKey(0))
+    jp, _ = j_get_model(jc).init(jc, jax.random.PRNGKey(0))
     tp = convert.from_numpy_tree(jax.tree.map(np.asarray, jp), tc, "cpu")
     geo = dict(batch=2, max_len=24, page_size=4, megastep_k=4,
                verify_block_table=True, auto_refill=False, n_pages=10)
@@ -90,6 +98,11 @@ def test_batcher_matches_reference(tmp_path, fused, strategy, arch):
                 np.testing.assert_array_equal(
                     port.state[k].numpy(), np.asarray(ref.state[k]),
                     err_msg=f"{k} after round {rounds}")
+        if "ssm" in port.state:
+            for a, b in zip(port.state["ssm"], ref.state["ssm"]):
+                np.testing.assert_allclose(
+                    a.numpy(), np.asarray(b), atol=SSM_ATOL, rtol=SSM_ATOL,
+                    err_msg=f"ssm after round {rounds}")
     for b, tr in ((ref, jtr), (port, ttr)):
         b.emit_summary()
         tr.close()
@@ -148,6 +161,30 @@ def test_cli_serves_the_families(monkeypatch, capsys, arch):
     out = capsys.readouterr().out
     assert "'fused_kernel': 'ok'" in out
     assert "completed=3" in out and "aborts=0" in out
+
+
+@pytest.mark.parametrize("arch,fused_kernel", [
+    ("mamba2-2.7b", "attention-free SSM stack: no paged decode attention"),
+    ("zamba2-1.2b", "ok"),
+    ("seamless-m4t-large-v2",
+     "cross-attention decode state not wired to the fused kernel")])
+def test_cli_serves_ssm_hybrid_and_encdec(monkeypatch, capsys, arch,
+                                          fused_kernel):
+    """``python -m repro_torch.launch.serve --arch A --smoke --device cpu
+    --fused-kernel`` drains its workload with 0 aborts for mamba2 (no page
+    table: the rounds print no occupancy), zamba2 and seamless, and
+    reports the reference's fallback string."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--smoke", "--device", "cpu",
+        "--batch", "2", "--max-len", "24", "--page-size", "4",
+        "--megastep", "4", "--requests", "3", "--rounds", "20",
+        "--verify-block-table", "--fused-kernel", "--fail-on-abort"])
+    assert serve.main() == 0
+    out = capsys.readouterr().out
+    assert f"'fused_kernel': '{fused_kernel}'" in out
+    assert "completed=3" in out and "aborts=0" in out
+    assert ("live_pages=" in out) == (arch != "mamba2-2.7b")
 
 
 def test_cli_refuses_a_depth_off_the_superblocks(monkeypatch, capsys):
