@@ -83,14 +83,14 @@ order, each phase printing one JSON line:
                every round, the rebuild with K3) for the other model
                families, random bf16 weights from the seed:
                ``moe``    granite-moe-1b-a400m at full width (32 experts
-                          top-8), depth cut 24 -> 12 for time, the serve
+                          top-8), depth cut 24 -> 8 for time, the serve
                           traffic;
                           one megastep run twice from clones of one state
                           must give the same bits (the MoE combine has no
                           atomic add);
                ``gemma3`` gemma3-12b at full width and the published 1024
-                          window, depth cut 48 -> 12 (two 5:1 superblocks:
-                          10 ring layers, 2 paged), 12 requests of 900-1100
+                          window, depth cut 48 -> 6 (one 5:1 superblock:
+                          5 ring layers, 1 paged), 12 requests of 900-1100
                           new tokens on 8 lanes, max_len 1536, so every
                           lane passes the window and 4 lanes are re-seated
                           (their rings reset); one lane's decode logits
@@ -141,6 +141,35 @@ order, each phase printing one JSON line:
                the counters equal the shadow's census;
                then a profile of three serve rounds: the device's busy
                share and the kernels that take its time.
+11. simulator — the paper's Algorithms 1-6 (``core/simulator``) in the
+               LL/SC and the CAS mode: ``tests/test_simulator.py``'s four
+               concurrent schedule kinds (uniform, bursty, stalled,
+               round-robin; P 3, K 5, m 16, 4000 events, invariants after
+               every write) and its same-key stress (P 3, K 4, m 8), each
+               run on the card and on the CPU with every ``SimState``
+               field equal bit for bit, LL/SC pairing and the invariants
+               holding and the history linearizable (``check_history``);
+               then the Theorem-21 load shape (m 256, P 8, random distinct
+               keys to load 0.75, x = 4, 400 P K uniform events) on the
+               card: every op completes, pairing holds, the final table
+               passes ``check_invariants``; events per second, host syncs
+               per event, each active event's cost on the card and on the
+               CPU, mean steps per op beside Knuth's 0.5 (1 + x^2).
+12. train    — ``TrainRunner`` (``launch/train.py``) on qwen2.5-32b at full
+               width (d_model 5120, 40 q-heads padded to 48, 8 KV heads of
+               128, d_ff 27648, vocab 152064, untied head), depth cut 64 ->
+               2, random bf16 weights from the seed, batch 4 x 512 tokens,
+               remat and n-gram dedup on, 6 AdamW steps: every loss and
+               grad norm finite, the lr on ``optimizer.schedule``; seconds
+               per step, tokens per second, peak memory and the model-FLOPs
+               share (``train_flops``) over the 989 TFLOP/s bf16 peak.  A
+               batch fed twice to a ``DedupState`` on the card is kept,
+               then masked.  The smoke config in float32: 2 steps on the
+               card from the CPU's initial state, loss and every parameter
+               within ``TRAIN_F32_TOL`` of the CPU's run; restart
+               determinism through ``TrainRunner``'s checkpoint (save at
+               step 3, restore on start, continue to 6: the losses of the
+               uninterrupted run).
 
 Launch counts are zeroed just before each serve run and read after its
 rebuild: K1 must have launched once per paged layer per token step, K2
@@ -148,8 +177,9 @@ never (the engine's attention is K1) and K3 once (the rebuild) for linear
 and robinhood, never for hopscotch; the linear run is the main path of the
 kernels line, ``launches_by_strategy`` holds all three and
 ``launches_by_family`` the families' (mamba2 launches none, seamless only
-K3's rebuild).  The per-round check's launches are counted apart
-(``check_launches``).  A wrapper counts one launch per call, though K1 and
+K3's rebuild), ``launches_by_phase`` the simulator's and the train
+phase's (none: neither path has a TPU kernel in the reference).  The
+per-round check's launches are counted apart (``check_launches``).  A wrapper counts one launch per call, though K1 and
 K2 each make two CUDA launches (the split kernel and the merge).  Any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero and
@@ -197,12 +227,12 @@ OVERCOMMIT = 0.15
 # the families phase: (run, arch, layers (0 = the config's), config
 # overrides, traffic).  gemma3's lanes decode past its 1024-token window and
 # 12 requests on 8 lanes re-seat 4 of them.  Depth is cut for the script's
-# time limit: granite-moe 24 -> 12, zamba2 38 -> 14 (two groups of 6 mamba
-# layers, each followed by the shared block, and the 2-layer tail), mamba2
-# 64 -> 16
+# time limit: granite-moe 24 -> 8, gemma3 48 -> 6 (one 5:1 superblock: 5
+# ring layers, 1 paged), zamba2 38 -> 14 (two groups of 6 mamba layers,
+# each followed by the shared block, and the 2-layer tail), mamba2 64 -> 16
 FAMILIES = [
-    ("moe", "granite-moe-1b-a400m", 12, {}, SERVE_TRAFFIC),
-    ("gemma3", "gemma3-12b", 12, {},
+    ("moe", "granite-moe-1b-a400m", 8, {}, SERVE_TRAFFIC),
+    ("gemma3", "gemma3-12b", 6, {},
      dict(max_len=1536, requests=12, prompt_len=(64, 256),
           max_new=(900, 1100))),
     ("vlm", "qwen2-vl-7b", LAYERS, {}, SERVE_TRAFFIC),
@@ -246,6 +276,30 @@ REPLAY_M, REPLAY_BATCH, REPLAY_BATCHES = 1 << 14, 1024, 16
 # group lost at round 6)
 SOAK = dict(hosts=4, requests=48, overcommit=2.0, grow_round=3,
             lose_round=6)
+
+# the simulator phase: ``tests/test_simulator.py``'s concurrent cases (P
+# 3, K 5, m 16, 4000 events, invariants checked after every write) and its
+# same-key stress (P 3, K 4, m 8, 6000 events), held card against CPU; then
+# the reference's Theorem-21 load shape (``benchmarks/bench_steps.py``
+# ``sweep_load``: m 256, P 8, distinct random keys to load 1 - 1/x, x = 4,
+# 400 P K events of a uniform schedule)
+SIM_CONCURRENT = dict(P=3, K=5, m=16, T=4000)
+SIM_SAME_KEY = dict(P=3, K=4, m=8, T=6000)
+SIM_LOAD = dict(m=256, P=8, x=4.0)
+
+# the train phase: qwen2.5-32b at full width through ``TrainRunner``
+# (remat, dedup), depth cut 64 -> 2: each layer is about 498 M parameters
+# and the embedding and untied head 1.557 B; at 2 layers the bf16 params and
+# grads and the f32 moments take about 31 GB, at 4 about 43 GB before the
+# optimizer's f32 temporaries.  Then the smoke config in float32 on the
+# card against the same run on the CPU (``TRAIN_F32_TOL``, relative, per
+# leaf and per loss), and restart determinism at
+# ``tests/test_training.py::test_restart_determinism``'s shape (losses
+# within ``TRAIN_RESTART_TOL``)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 512, 6
+TRAIN_F32_TOL = 1e-4
+TRAIN_RESTART_TOL = 1e-6
+H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 peak
 
 
 T0 = time.time()
@@ -1771,6 +1825,264 @@ def phase_families(main_cfg, main_params, checks):
     return by_family, shapes
 
 
+def zero_launches() -> dict:
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def no_launches(wrappers, phase: str) -> dict:
+    """The launches since ``zero_launches``; raises unless none (the phase's
+    path has no TPU kernel in the reference)."""
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase {phase} launched {launches}")
+    return launches
+
+
+def sim_states_equal(a, b) -> bool:
+    import torch
+    flat = lambda st: [getattr(st, f) for f in st._fields if f != "regs"] \
+        + list(st.regs)
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(flat(a),
+                                                              flat(b)))
+
+
+def phase_simulator() -> dict:
+    """The paper's simulator in both modes (see the module docstring,
+    phase 11).  Returns the kernels' launches (none)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import schedulers as SCH
+    from repro_torch.core import simulator as SIM
+    from repro_torch.core.linearizability import check_history
+    from repro_torch.core.spec import OP_NONE, RET_PENDING
+    from repro_torch.device import SYNC_STATS
+    wrappers = zero_launches()
+    rng = np.random.default_rng(SEED + 23)
+
+    def run(mode, wl, m, sched, dev, check_inv):
+        """(state, seconds, active events, host syncs) of one run."""
+        syncs = SYNC_STATS["host_syncs"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = SIM.Simulation(mode, m, SEED, wl.op, wl.key,
+                             check_inv=check_inv, device=dev)
+        sim.run(sched)
+        st = sim.state()
+        torch.cuda.synchronize()
+        return (st, time.perf_counter() - t0, sim.active_events,
+                SYNC_STATS["host_syncs"] - syncs)
+
+    for mode in (SIM.MODE_LLSC, SIM.MODE_CAS):
+        c = SIM_CONCURRENT
+        cases = []
+        for kind in ("uniform", "bursty", "stalled", "rr"):
+            wl = SCH.random_workload(rng, P=c["P"], K=c["K"], num_keys=5)
+            sched = {"uniform": lambda: SCH.uniform_schedule(rng, c["P"],
+                                                             c["T"]),
+                     "bursty": lambda: SCH.bursty_schedule(rng, c["P"],
+                                                           c["T"]),
+                     "stalled": lambda: SCH.stalled_schedule(rng, c["P"],
+                                                             c["T"]),
+                     "rr": lambda: SCH.round_robin_schedule(c["P"],
+                                                            c["T"])}[kind]()
+            cases.append((kind, wl, c["m"], sched))
+        c = SIM_SAME_KEY
+        cases.append(("same_key", SCH.same_key_workload(
+            c["P"], c["K"], key=5, pattern="insert_delete"), c["m"],
+            SCH.uniform_schedule(rng, c["P"], c["T"])))
+        cost = {"card": [0.0, 0], "cpu": [0.0, 0]}
+        for name, wl, m, sched in cases:
+            card, dt_g, act_g, _ = run(mode, wl, m, sched, DEV, True)
+            cpu, dt_c, act_c, _ = run(mode, wl, m, sched, "cpu", True)
+            cost["card"][0] += dt_g
+            cost["card"][1] += act_g
+            cost["cpu"][0] += dt_c
+            cost["cpu"][1] += act_c
+            if not sim_states_equal(card, cpu):
+                raise AssertionError(f"simulator {mode} {name}: card and CPU "
+                                     f"states differ")
+            if not (bool(card.pair_ok) and bool(card.inv_ok)):
+                raise AssertionError(f"simulator {mode} {name}: pair_ok "
+                                     f"{bool(card.pair_ok)}, inv_ok "
+                                     f"{bool(card.inv_ok)}")
+            ok, bad = check_history(SIM.history_arrays(card, wl))
+            if not ok:
+                raise AssertionError(f"simulator {mode} {name}: keys {bad} "
+                                     f"not linearizable")
+
+        # Theorem 21's load shape (bench_steps.sweep_load at x = 4)
+        m, P, x = SIM_LOAD["m"], SIM_LOAD["P"], SIM_LOAD["x"]
+        n_ins = int((1 - 1 / x) * m)
+        K = -(-n_ins // P)
+        wl = SCH.insert_only_distinct(P, K)
+        wl.key[:, :] = rng.choice(2 ** 27, size=(P, K),
+                                  replace=False).astype(np.uint32)
+        wl.op[np.arange(P * K).reshape(P, K) >= n_ins] = OP_NONE
+        T = 400 * P * K
+        sched = SCH.uniform_schedule(rng, P, T)
+        st, dt, active, syncs = run(mode, wl, m, sched, DEV, False)
+        cpu, dt_c, _, _ = run(mode, wl, m, sched, "cpu", False)
+        res, steps = st.results.cpu().numpy(), st.steps.cpu().numpy()
+        if not ((res != RET_PENDING) | (wl.op == OP_NONE)).all():
+            raise AssertionError(f"simulator {mode}: ops left unfinished")
+        if not (bool(st.pair_ok)
+                and bool(SIM.check_invariants(st.table, m, SEED))
+                and sim_states_equal(st, cpu)):
+            raise AssertionError(f"simulator {mode}: the load run broke "
+                                 f"pairing or the invariants, or the card "
+                                 f"and the CPU disagree")
+        done = (wl.op != OP_NONE) & (res != RET_PENDING)
+        emit("simulator", mode=mode, bitwise_cases=[c[0] for c in cases],
+             bitwise_equal=True,
+             card_ms_per_active_event=cost["card"][0] / cost["card"][1] * 1e3,
+             cpu_ms_per_active_event=cost["cpu"][0] / cost["cpu"][1] * 1e3,
+             active_events_checked=cost["card"][1],
+             load=dict(m=m, P=P, K=K, x=x, load=n_ins / m, ops=n_ins,
+                       events=T, active_events=active, seconds=dt,
+                       cpu_seconds=dt_c, events_per_s=T / dt,
+                       active_events_per_s=active / dt,
+                       card_ms_per_active_event=dt / active * 1e3,
+                       cpu_ms_per_active_event=dt_c / active * 1e3,
+                       host_syncs=syncs, host_syncs_per_event=syncs / T,
+                       host_syncs_per_active_event=syncs / active,
+                       mean_steps=float(steps[done].mean()),
+                       knuth=0.5 * (1 + x * x)))
+    return no_launches(wrappers, "simulator")
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x (matmul parameters) x tokens
+    (forward 2 and backward 4 per parameter per token: the attention and
+    MLP projections with the padded heads as run, and the untied head; the
+    embedding lookup is no product), plus the attention products q.k and
+    p.v over the full S x S square of every head, forward and backward (12
+    L B S^2 n_q hd).  Remat's recomputation is not counted."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = 2 * d * cfg.n_q * hd + 2 * d * cfg.n_kv * hd \
+        + 3 * d * cfg.d_ff
+    n = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = 12 * cfg.num_layers * batch * seq * seq * cfg.n_q * hd
+    return 6.0 * n * batch * seq + attn
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| in float64 on the host."""
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_train() -> dict:
+    """Single-device training (see the module docstring, phase 12).
+    Returns the kernels' launches (none)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.train import TrainRunner
+    from repro_torch.models import nn
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    wrappers = zero_launches()
+    t_phase = time.perf_counter()
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = TrainRunner(cfg, dedup=True, device=DEV)
+    state, losses = runner.run(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               steps=TRAIN_STEPS, seed=SEED, log_every=1)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in nn.tree_leaves(state.params))
+    hist, step_s = runner.history, runner.step_seconds
+    dedup_live = int(runner.dedup.table.num_keys)
+    del state, runner
+    torch.cuda.empty_cache()
+    want_lr = [float(OPT.schedule(OPT.AdamWConfig(), torch.tensor(i + 1)))
+               for i in range(TRAIN_STEPS)]
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+            for h in hist):
+        raise AssertionError(f"train: non-finite or missing steps {hist}")
+    lr_err = max(abs(h["lr"] - w) / w for h, w in zip(hist, want_lr))
+    if lr_err > 1e-6:
+        raise AssertionError(f"train: lr {[h['lr'] for h in hist]} off the "
+                             f"schedule {want_lr}")
+    s_per_step = float(np.median(step_s[1:]))
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+
+    # a batch fed twice to the dedup table on the card
+    dd = DATA.DedupState(device=DEV)
+    b = DATA.synth_batch(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, step=0,
+                         seed=SEED, device=DEV)
+    keep1, _ = dd.filter_batch(b["tokens"])
+    keep2, frac2 = dd.filter_batch(b["tokens"])
+    if not bool(keep1.all()) or bool(keep2.any()):
+        raise AssertionError(f"train: dedup kept {keep1.tolist()} then "
+                             f"{keep2.tolist()}")
+
+    # the smoke config in float32: the card's 2 steps against the CPU's
+    sc = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    cpu = TS.init_state(sc, torch.Generator().manual_seed(SEED), "cpu")
+    to_dev = lambda t: t.detach().to(DEV, copy=True)
+    card = TS.TrainState(nn.tree_map(to_dev, cpu.params), OPT.OptState(
+        nn.tree_map(to_dev, cpu.opt.m), nn.tree_map(to_dev, cpu.opt.v),
+        to_dev(cpu.opt.count)), to_dev(cpu.step))
+    step_fn = TS.make_train_step(sc)
+    f32_loss_err = 0.0
+    for i in range(2):
+        bc = DATA.synth_batch(sc, batch=2, seq_len=32, step=i, seed=SEED,
+                              device="cpu")
+        cpu, mc = step_fn(cpu, bc)
+        card, mg = step_fn(card, {k: v.to(DEV) for k, v in bc.items()})
+        f32_loss_err = max(f32_loss_err, rel_err(mg["loss"], mc["loss"]))
+    f32_param_err = max(rel_err(a, b) for a, b in zip(
+        nn.tree_leaves(card.params), nn.tree_leaves(cpu.params)))
+    if max(f32_loss_err, f32_param_err) > TRAIN_F32_TOL:
+        raise AssertionError(f"train: f32 card vs CPU loss {f32_loss_err}, "
+                             f"params {f32_param_err}")
+
+    # restart determinism through TrainRunner's checkpoint
+    rc = get_smoke_config("codeqwen1.5-7b")
+    kw = dict(batch=2, seq_len=16, seed=SEED, log_every=TRAIN_STEPS)
+    _, full = TrainRunner(rc, device=DEV).run(steps=6, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        _, first = TrainRunner(rc, ckpt_dir=d, ckpt_every=3,
+                               device=DEV).run(steps=3, **kw)
+        _, second = TrainRunner(rc, ckpt_dir=d, device=DEV).run(steps=6,
+                                                                 **kw)
+    restart_err = max(abs(a - b) / abs(b) for a, b in zip(first + second,
+                                                           full))
+    if len(first + second) != 6 or restart_err > TRAIN_RESTART_TOL:
+        raise AssertionError(f"train: restart losses {first + second} vs "
+                             f"{full}")
+
+    launches = no_launches(wrappers, "train")
+    emit("train", card=nvidia_smi(), arch=ARCH, layers=TRAIN_LAYERS,
+         params=n_params,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         losses=[h["loss"] for h in hist],
+         grad_norms=[h["grad_norm"] for h in hist],
+         lrs=[h["lr"] for h in hist], lr_max_rel_err=lr_err,
+         step_seconds=step_s, seconds_per_step=s_per_step,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_per_step,
+         peak_gib=peak_gib, model_flops=flops,
+         model_flops_share=flops / s_per_step / H100_BF16_FLOPS,
+         flops_formula="6 * matmul params * tokens + 12 L B S^2 n_q hd, "
+                       "over 989e12 FLOP/s (H100 SXM dense bf16)",
+         dedup_live_keys=dedup_live, dedup_second_dup_frac=float(frac2),
+         f32_card_vs_cpu=dict(loss=f32_loss_err, params=f32_param_err),
+         restart_max_rel_err=restart_err, launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def kernel_entries(snap, rebuilt, errs, by_strategy, checks, probe_phase,
                    robinhood_k3):
     import torch
@@ -1966,6 +2278,13 @@ def main() -> int:
     kernels[0]["max_abs_err"] = errs["K1"]
     phase_sharded()
     phase_profile(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    by_phase = {"simulator": phase_simulator(), "train": phase_train()}
+    for e in kernels:
+        key = {"fused_decode": "K1", "paged_attention": "K2",
+               "probe_lookup": "K3"}[e["name"]]
+        e["launches_by_phase"] = {ph: n[key] for ph, n in by_phase.items()}
     emit("done", seconds=time.time() - t0)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -56,3 +56,13 @@ def hash_keys(keys, m: int, seed: int = 0) -> torch.Tensor:
     hi = x >> 16
     return (((hi * (m & MASK32)) & MASK32) >> 16).to(torch.int32)
 
+
+
+def probe_distance(idx, start, m: int):
+    """Distance of ``idx`` from ``start`` along the probe sequence (mod m),
+    the paper's ``i - h(v)`` with wraparound.  Python ints give an int,
+    tensors a tensor of their dtype."""
+    d = idx - start
+    if isinstance(d, torch.Tensor):
+        return torch.where(d < 0, d + m, d)
+    return d + m if d < 0 else d

@@ -1,1 +1,2 @@
-"""Distributed pieces of the port: the hash-prefix sharded table."""
+"""Distributed pieces of the port: the hash-prefix sharded table, the
+train loop's fault-tolerance policies and gradient compression."""

@@ -10,8 +10,9 @@ stay float32.  Every family's tree goes through the same walk: the SSM
 and hybrid families' ``layers.mamba`` / ``layers.ln`` and ``shared``,
 encdec's ``encoder``, ``decoder`` (with ``cross`` and ``ln_cross``) and
 ``enc_norm``.  The layouts are the same on both
-sides, so both compute the same function.  numpy only: nothing here
-imports JAX.
+sides, so both compute the same function.  ``train_state_from_numpy`` does
+the same for a whole train state (parameters, AdamW moments, count).
+numpy only: nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -46,3 +47,31 @@ def from_numpy_tree(tree, cfg, device=None) -> Dict[str, Any]:
                     else cfg.activation_dtype())
 
     return walk(tree, ())
+
+
+def train_state_from_numpy(params, m, v, count, cfg, device=None, step=None):
+    """The reference's train state — ``params``, the AdamW moments ``m``
+    and ``v`` (float32 trees like ``params``) and ``count``, all numpy —
+    as the port's ``training.train_step.TrainState`` on ``device``, so both
+    packages start a step from the same state.  ``step`` defaults to
+    ``count``; the parameters require grad."""
+    from repro_torch.models.nn import tree_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import TrainState
+
+    dev = resolve_device(device)
+    p = from_numpy_tree(params, cfg, dev)
+    for leaf in tree_leaves(p):
+        leaf.requires_grad_(True)
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(x) for k, x in tree.items()}
+        return torch.from_numpy(np.array(tree, np.float32)).to(dev)
+
+    def i32(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+    return TrainState(params=p,
+                      opt=opt.OptState(m=f32(m), v=f32(v), count=i32(count)),
+                      step=i32(count if step is None else step))

@@ -4,7 +4,8 @@
 Encoder: non-causal self attention over precomputed frame embeddings (the
 audio frontend is a stub: the caller gives ``src_embeds`` [B, S_src, d]).
 Decoder: causal self attention, cross attention over the encoder's memory,
-SwiGLU MLP.  The teacher-forced loss waits for ROADMAP item 21.
+SwiGLU MLP.  ``loss_fn`` is the teacher-forced loss; ``remat`` recomputes
+each layer's activations in the backward.
 """
 from __future__ import annotations
 
@@ -41,40 +42,59 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
             "final_norm": nn.norm_init(cfg.d_model, dtype, dev)}
 
 
-def encode(cfg, params, src_embeds):
+def _enc_layer(cfg, lp, x, positions):
+    x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
+                             positions, cfg, causal=False)
+    return x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+
+
+def _dec_layer(cfg, lp, x, positions, memory):
+    x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
+                             positions, cfg)
+    x = x + L.cross_attention(lp["cross"],
+                              nn.rmsnorm(lp["ln_cross"], x), memory)
+    return x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+
+
+def encode(cfg, params, src_embeds, *, remat: bool = False):
     """src_embeds [B,S_src,d] -> the encoder's memory [B,S_src,d]."""
     x = src_embeds
     positions = torch.arange(x.shape[1], device=x.device)
+    layer = nn.remat(_enc_layer, remat)
     for i in range(cfg.encoder_layers):
-        lp = nn.layer_slice(params["encoder"], i)
-        x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
-                                 positions, cfg, causal=False)
-        x = x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+        x = layer(cfg, nn.layer_slice(params["encoder"], i), x, positions)
     return nn.rmsnorm(params["enc_norm"], x)
 
 
-def decode_train(cfg, params, tokens, memory):
+def decode_train(cfg, params, tokens, memory, *, remat: bool = False):
     """Teacher-forced decoder over ``tokens`` [B,S] -> normed [B,S,d]."""
     x = nn.embed_lookup(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    layer = nn.remat(_dec_layer, remat)
     for i in range(cfg.num_layers):
-        lp = nn.layer_slice(params["decoder"], i)
-        x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
-                                 positions, cfg)
-        x = x + L.cross_attention(lp["cross"],
-                                  nn.rmsnorm(lp["ln_cross"], x), memory)
-        x = x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+        x = layer(cfg, nn.layer_slice(params["decoder"], i), x, positions,
+                  memory)
     return nn.rmsnorm(params["final_norm"], x)
 
 
-def forward(cfg, params, tokens, *, src_embeds=None, last_only: bool = False,
+def forward(cfg, params, tokens, *, src_embeds=None, remat: bool = False,
+            last_only: bool = False,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward -> logits [B,S,V] (f32) and a zero aux
     loss."""
     assert src_embeds is not None, "encdec requires src_embeds (stub frontend)"
-    memory = encode(cfg, params, src_embeds)
-    x = decode_train(cfg, params, tokens, memory)
+    memory = encode(cfg, params, src_embeds, remat=remat)
+    x = decode_train(cfg, params, tokens, memory, remat=remat)
     if last_only:
         x = x[:, -1:]
     logits = nn.embed_logits(params["embed"], x).float()
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params, tokens, labels, *, src_embeds=None,
+            remat: bool = True):
+    """Teacher-forced mean next-token cross entropy over ``src_embeds``'
+    memory (labels = tokens shifted by caller)."""
+    logits, _ = forward(cfg, params, tokens, src_embeds=src_embeds,
+                        remat=remat)
+    return nn.mean_nll(logits, labels)

@@ -5,7 +5,8 @@ reused after every ``shared_attn_every`` mamba layers.
 38 = 6·6 + 2 for the full config: six groups of (6 mamba layers, then
 the shared block), then 2 trailing mamba layers.  Each invocation of the
 shared block has its own KV pages at decode time (parameters shared,
-state not).  The training loss waits for ROADMAP item 21.
+state not).  ``remat`` recomputes each mamba layer's activations in the
+backward, as the reference's checkpointed mamba scan does.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
             "final_norm": nn.norm_init(cfg.d_model, dtype, dev)}
 
 
-def forward(cfg, params, tokens, *, last_only: bool = False,
+def forward(cfg, params, tokens, *, remat: bool = False,
+            last_only: bool = False,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> logits [B,S,V] (f32) and a zero aux
     loss."""
@@ -75,12 +77,18 @@ def forward(cfg, params, tokens, *, last_only: bool = False,
     positions = torch.arange(S, device=tokens.device)
     for g in range(n_inv):
         x = ssm_lm.mamba_layers(cfg, params["layers"], x, g * every,
-                                (g + 1) * every)
+                                (g + 1) * every, remat)
         x = L.block_apply(params["shared"], x, positions, cfg)
     x = ssm_lm.mamba_layers(cfg, params["layers"], x, n_inv * every,
-                            cfg.num_layers)
+                            cfg.num_layers, remat)
     if last_only:
         x = x[:, -1:]
     x = nn.rmsnorm(params["final_norm"], x)
     logits = nn.embed_logits(params["embed"], x).float()
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):
+    """Mean next-token cross entropy (labels = tokens shifted by caller)."""
+    logits, _ = forward(cfg, params, tokens, remat=remat)
+    return nn.mean_nll(logits, labels)

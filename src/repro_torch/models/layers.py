@@ -5,8 +5,11 @@ the pre-norm block.
 ``flash_attention`` keeps the reference's signature and semantics (causal
 mask, sliding window, ``q_offset``, GQA in grouped form) and computes its
 forward in plain PyTorch, one query chunk at a time with one f32 softmax
-over the keys the chunk may attend to.  The training backward belongs to
-a later slice (ROADMAP item 21).
+over the keys the chunk may attend to.  Its backward is autograd through
+that forward: it keeps each query chunk's probabilities, O(Sq·Sk) per
+call, where the reference's custom VJP recomputes them chunk by chunk;
+under ``remat`` (``nn.remat``, per layer) only the layer being
+differentiated holds them.
 """
 from __future__ import annotations
 
@@ -81,7 +84,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd].
 
     ``q_offset`` is the absolute position of q[0]; kv positions are
-    0..Sk-1.  Forward only."""
+    0..Sk-1.  Differentiable (autograd)."""
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv

@@ -4,7 +4,8 @@ local:global attention pattern included (PyTorch port of ``models/lm.py``).
 gemma3 runs its layers as ``num_layers / (pattern_local + 1)``
 superblocks: ``pattern_local`` local layers with ``window=local_window``,
 then one global layer.  The ssm, hybrid and encdec families have modules
-of their own (``models/registry.py``).
+of their own (``models/registry.py``).  ``remat`` recomputes each layer's
+activations in the backward (``nn.remat``).
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def _apply_layer(cfg, p, x, positions, *, window: int, mrope_positions):
 
 
 def forward(cfg, params, tokens, *, positions=None, patch_embeds=None,
-            mrope_positions=None,
+            mrope_positions=None, remat: bool = False,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> logits [B,S,V] (f32) and aux loss."""
     check_supported(cfg)
@@ -96,10 +97,11 @@ def forward(cfg, params, tokens, *, positions=None, patch_embeds=None,
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layer = nn.remat(_apply_layer, remat)
     for i in range(cfg.num_layers):
-        x, a = _apply_layer(cfg, nn.layer_slice(params["layers"], i), x,
-                            positions, window=layer_window(cfg, i),
-                            mrope_positions=mrope_positions)
+        x, a = layer(cfg, nn.layer_slice(params["layers"], i), x,
+                     positions, window=layer_window(cfg, i),
+                     mrope_positions=mrope_positions)
         if a is not None:
             aux = aux + a
     if last_only:
@@ -114,3 +116,13 @@ def _logits(cfg, params, x):
     else:
         logits = nn.dense(params["lm_head"], x)
     return logits.float()
+
+
+def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):
+    """Mean next-token cross entropy (labels = tokens shifted by caller),
+    plus the MoE's load-balance term ``0.01 · aux / num_layers``."""
+    logits, aux = forward(cfg, params, tokens, remat=remat)
+    loss = nn.mean_nll(logits, labels)
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux / cfg.num_layers
+    return loss

@@ -7,10 +7,12 @@ converted parameters (``models/convert``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -73,9 +75,46 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested-dict tree, in sorted key order (the order
+    ``jax.tree.leaves`` gives the reference's dicts)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(tree, flat: list):
+    """``tree``'s nesting with the tensors of ``flat``, given in
+    ``tree_leaves`` order."""
+    it = iter(flat)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(tree)
+
+
 def layer_slice(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a stacked ``[L, ...]`` parameter tree (views)."""
     return tree_map(lambda t: t[i], stacked)
+
+
+def remat(fn, enabled: bool):
+    """``fn`` as is, or under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` on its layer scan): the call
+    saves only its inputs and recomputes its activations in the
+    backward."""
+    if not enabled:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def mean_nll(logits, labels) -> torch.Tensor:
+    """Mean next-token negative log-likelihood: logits [B,S,V] (f32),
+    labels [B,S] (the caller shifts them)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
 
 
 def stack_layer_params(layers) -> Params:

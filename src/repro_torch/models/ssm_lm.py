@@ -1,6 +1,5 @@
 """Mamba2 LM (attention-free; PyTorch port of ``models/ssm_lm.py``):
-embed -> Mamba2 blocks -> logits.  The training loss waits for the
-training slice (ROADMAP item 21)."""
+embed -> Mamba2 blocks -> logits, and the next-token loss."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -31,22 +30,34 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
             "final_norm": nn.norm_init(cfg.d_model, dtype, dev)}
 
 
-def mamba_layers(cfg, stacked, x, lo: int, hi: int):
-    """Full-sequence forward through the stacked mamba layers [lo, hi)."""
+def _mamba_layer(cfg, lp, x):
+    return x + ssm.mamba_forward(lp["mamba"], nn.rmsnorm(lp["ln"], x), cfg)
+
+
+def mamba_layers(cfg, stacked, x, lo: int, hi: int, remat: bool = False):
+    """Full-sequence forward through the stacked mamba layers [lo, hi);
+    ``remat`` recomputes each layer's activations in the backward."""
+    layer = nn.remat(_mamba_layer, remat)
     for i in range(lo, hi):
-        lp = nn.layer_slice(stacked, i)
-        x = x + ssm.mamba_forward(lp["mamba"], nn.rmsnorm(lp["ln"], x), cfg)
+        x = layer(cfg, nn.layer_slice(stacked, i), x)
     return x
 
 
-def forward(cfg, params, tokens, *, last_only: bool = False,
+def forward(cfg, params, tokens, *, remat: bool = False,
+            last_only: bool = False,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> logits [B,S,V] (f32) and a zero aux
     loss."""
     x = nn.embed_lookup(params["embed"], tokens)
-    x = mamba_layers(cfg, params["layers"], x, 0, cfg.num_layers)
+    x = mamba_layers(cfg, params["layers"], x, 0, cfg.num_layers, remat)
     if last_only:
         x = x[:, -1:]
     x = nn.rmsnorm(params["final_norm"], x)
     logits = nn.embed_logits(params["embed"], x).float()
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):
+    """Mean next-token cross entropy (labels = tokens shifted by caller)."""
+    logits, _ = forward(cfg, params, tokens, remat=remat)
+    return nn.mean_nll(logits, labels)

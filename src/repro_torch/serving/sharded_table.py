@@ -20,14 +20,19 @@ not compacted), so every outstanding block-table entry stays valid.
 manifest hands its prefixes to the survivors and the router re-admits the
 lost lanes through recompute preemption.
 
+**Checkpoints.**  ``checkpoint_sharded`` writes each live shard's live key
+set through ``training/checkpoint.save_shard`` and commits the routing
+manifest; ``restore_sharded_table`` re-homes every saved key onto any
+shard count.
+
 Everything here is host-driven eager PyTorch between megasteps, with the
-shards' tables on ``device`` (the card unless ``"cpu"``).  The sharded
-checkpoint (``checkpoint_sharded`` / ``restore_sharded_table``) needs
-``training/checkpoint.py`` and is not ported (ROADMAP Slice G).
+shards' tables on ``device`` (the card unless ``"cpu"``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +42,7 @@ from repro_torch.core import batched as BT
 from repro_torch.device import host_int, host_numpy, resolve_device
 from repro_torch.dist import table_shard as TS
 from repro_torch.serving import page_table as PT
+from repro_torch.training import checkpoint as CKPT
 
 
 def _page_keys(seq_ids, logical) -> np.ndarray:
@@ -337,6 +343,67 @@ class ShardedPageTable:
                 "occupancy": (live + tombs) / max(n, 1),
                 "probe_p99": p99,
                 "migrated": mig, "migration_left": left}
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpointing (training/checkpoint.py format).  The table-layer
+# payload per shard is its LIVE KEY SET: physical slots are not portable
+# (the new job re-allocates pages and rebuilds block tables from the
+# authoritative wait-free lookup, exactly as after a Section 4.3 rebuild),
+# and the routing manifest rides in shards.json so restore can re-home
+# every key onto a DIFFERENT shard count.
+
+
+def checkpoint_sharded(spt: ShardedPageTable, ckpt_dir: str,
+                       step: int) -> str:
+    """Per-host shard writes + the manifest commit.  Returns the
+    shards.json path (the commit point); safe to call again at the same
+    step after the manifest changed (elastic remesh) — the re-commit
+    replaces shards.json atomically."""
+    for sid in spt.live_shards():
+        sh = spt.shard(sid)
+        live = []
+        for ht in (sh.table, sh.old):
+            if ht is not None:
+                keys, n = BT.live_keys(ht)
+                live.append(host_numpy(keys)[:host_int(n)])
+        CKPT.save_shard(ckpt_dir, step, sid,
+                        {"keys": np.concatenate(live).astype(np.uint32)},
+                        extra={"strategy": spt.strategy,
+                               "n_cells": sh.n_cells()})
+    return CKPT.commit_sharded(
+        ckpt_dir, step, shard_manifest=json.loads(spt.manifest.to_json()),
+        extra={"page_size": spt.page_size, "max_pages": spt.max_pages})
+
+
+def restore_sharded_table(ckpt_dir: str, n_shards: int,
+                          pages_per_shard: int, *,
+                          strategy: str = "linear",
+                          step: Optional[int] = None,
+                          page_size: Optional[int] = None,
+                          max_pages: Optional[int] = None,
+                          device=None) -> Tuple[ShardedPageTable, int]:
+    """Restore onto ``n_shards`` shards — any count, not just the saved
+    one: every saved live key re-routes through the NEW balanced manifest
+    (``insert_keys``), the elastic-restore contract of the format."""
+    shards, _saved_manifest, step = CKPT.restore_sharded(ckpt_dir, step=step)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}", "shards.json")
+    with open(final) as f:
+        extra = json.load(f).get("extra", {})
+    spt = ShardedPageTable(
+        n_shards, pages_per_shard, strategy=strategy,
+        page_size=int(page_size or extra.get("page_size", 16)),
+        max_pages=int(max_pages or extra.get("max_pages", 64)),
+        device=device)
+    total = 0
+    for payload in shards:
+        total += spt.insert_keys(payload["keys"])
+    n_keys = sum(int(p["keys"].size) for p in shards)
+    if total != n_keys:
+        raise RuntimeError(
+            f"restore re-homed {total}/{n_keys} keys — target pool too "
+            f"small or duplicate keys across shards")
+    return spt, step
 
 
 def plan_table_shards(mesh) -> int:

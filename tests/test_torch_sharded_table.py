@@ -1,7 +1,7 @@
 """The port's sharded page table (``repro_torch.dist.table_shard``,
 ``repro_torch.serving.sharded_table``, ``serving.sched.router``) against
-the JAX package: analogs of ``tests/test_sharded_table.py`` but its two
-checkpoint tests (the sharded checkpoint waits for the training slice).
+the JAX package: analogs of ``tests/test_sharded_table.py``, its sharded
+checkpoint included (each shard's saved key set equal to the reference's).
 
 Routing is held owner for owner, the lazy resize round by round (each
 round's ``found`` array equal to the JAX shard's, tables bit for bit), and
@@ -28,7 +28,9 @@ from repro_torch.obs import counters as OC
 from repro_torch.serving import page_table as PT
 from repro_torch.serving.sched import synthetic_workload
 from repro_torch.serving.sharded_table import (ShardedPageTable,
-                                               plan_table_shards)
+                                               checkpoint_sharded,
+                                               plan_table_shards,
+                                               restore_sharded_table)
 
 # small tensors: one intra-op thread keeps the parallel test workers
 # from oversubscribing the cores
@@ -332,6 +334,59 @@ def test_probe_stats_cover_routed_ops():
     spt.lookup_pages(seqs, np.zeros(4, np.int64))
     assert PT.PROBE_STATS["keys_probed"] > 0
     PT.probe_stats_reset()
+
+
+# --- sharded checkpoint ----------------------------------------------------
+
+def test_checkpoint_restore_other_shard_count(tmp_path):
+    """Saved mid-migration, restored onto 2 and 3 shards: every live page
+    re-homed, each sequence's block table whole.  Each shard's saved key
+    set and extras equal the reference's on the same traffic."""
+    from repro.serving import sharded_table as JST
+    from repro.training import checkpoint as JCKPT
+    from repro_torch.training import checkpoint as CKPT
+    seqs = np.arange(1, 17, dtype=np.uint32)
+    spt = ShardedPageTable(4, 48, page_size=4, max_pages=8, **CPU)
+    jspt = JST.ShardedPageTable(4, 48, page_size=4, max_pages=8)
+    for t in (spt, jspt):
+        for pos in range(8):
+            t.alloc_step(seqs, np.full(16, pos, np.int64))
+        t.grow_shard(t.live_shards()[0], 96)   # save MID-migration
+    n_live = spt.total_live_pages()
+    checkpoint_sharded(spt, str(tmp_path / "port"), step=5)
+    JST.checkpoint_sharded(jspt, str(tmp_path / "ref"), step=5)
+    got, gman, _ = CKPT.restore_sharded(str(tmp_path / "port"))
+    want, wman, _ = JCKPT.restore_sharded(str(tmp_path / "ref"))
+    assert gman == wman and len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g["_extra"] == w["_extra"]
+        np.testing.assert_array_equal(g["keys"], w["keys"])
+
+    for n_shards in (2, 3):
+        back, step = restore_sharded_table(str(tmp_path / "port"), n_shards,
+                                           96, page_size=4, max_pages=8,
+                                           **CPU)
+        assert step == 5 and back.total_live_pages() == n_live
+        bt = back.lookup_pages(seqs, np.full(16, 7, np.int64))
+        assert (bt[:, :2] >= 0).all() and (bt[:, 2:] == -1).all()
+
+
+def test_checkpoint_recommit_after_remesh(tmp_path):
+    """The re-save path: losing a shard after the commit re-commits the
+    SAME step with the reassigned manifest (atomic shards.json replace)."""
+    import json
+    import os
+    spt = ShardedPageTable(3, 32, page_size=4, max_pages=8, **CPU)
+    spt.alloc_step(np.arange(1, 7, dtype=np.uint32), np.zeros(6, np.int64))
+    checkpoint_sharded(spt, str(tmp_path), step=1)
+    spt.lose_shard(spt.live_shards()[-1])
+    path = checkpoint_sharded(spt, str(tmp_path), step=1)
+    with open(path) as f:
+        doc = json.load(f)
+    man = TS.ShardManifest(int(doc["shard_manifest"]["prefix_bits"]),
+                           tuple(doc["shard_manifest"]["owners"]))
+    assert man == spt.manifest and len(man.live_shards()) == 2
+    assert os.path.basename(path) == "shards.json"
 
 
 # --- the simulated multi-host storm ---------------------------------------
