@@ -170,6 +170,42 @@ order, each phase printing one JSON line:
                determinism through ``TrainRunner``'s checkpoint (save at
                step 3, restore on start, continue to 6: the losses of the
                uninterrupted run).
+13. mesh     — serving on a device mesh: 4 ranks spawned on the one card
+               (``launch/mesh.run_spmd``, gloo carrying CUDA tensors
+               through the host) as a (data 2, model 2) mesh, each
+               holding only its pieces of the weights, pools and state.
+               qwen2.5-32b at full width, depth 64 -> 4, seeded bf16
+               weights cut by ``engine.mesh_param_specs``, served by
+               ``ContinuousBatcher(rules=)`` under ``serve_rules`` (gspmd:
+               heads all-gathered, pages over every axis) and
+               ``serve_manual_rules`` (manual TP: pages over data, KV
+               heads over model), 16 requests of 32-128 prompt and 32-128
+               new tokens at max_len 512, batch 8, page size 16, K 8, 320
+               pages: 0 aborts, the page table and block table equal to a
+               one-device run's (same weights, same pool) every round,
+               every rank's tokens and launches equal to rank 0's, K1
+               launched per rank once per layer per token step; the
+               one-device run's state after round 6 cut into each rank's
+               pieces (``engine.shard_state``) and re-hashed into a 2x
+               pool on the mesh (``rebuild_page_table``: pages moved
+               between the ranks' pools, K3 once on every rank), each
+               rank's piece equal bit for bit to its cut of the
+               one-device re-hash; on that state, one mesh step's logits
+               within ``LOGITS_REL_TOL`` of the one-device step's, and a
+               K-token megastep equal to K single steps bit for bit.
+               Then, manual rules only: granite-moe (2 layers, experts
+               over model), zamba2 (one group of 6 mamba layers and the
+               shared block, mamba head-sharded) and gemma3 (one 5:1
+               superblock), each fed 40 seeded tokens: logits against
+               the one-device run, the megastep against single steps.
+               Then the DHT (``core/sharded``) over the 4 ranks: 2^20
+               cells filled to live load 0.9 and two churn rounds, the
+               same ops on a card table and a CPU table over the same
+               ranks: equal answers and shard words, every answer the
+               rank's Python set model's.  K1 at rank 0's two mesh shapes
+               (its layer-0 pools and rank-local block table at the
+               serve's peak state, the most live pages) against its
+               plain version, timed beside its bound and SDPA.
 
 Launch counts are zeroed just before each serve run and read after its
 rebuild: K1 must have launched once per paged layer per token step, K2
@@ -177,8 +213,11 @@ never (the engine's attention is K1) and K3 once (the rebuild) for linear
 and robinhood, never for hopscotch; the linear run is the main path of the
 kernels line, ``launches_by_strategy`` holds all three and
 ``launches_by_family`` the families' (mamba2 launches none, seamless only
-K3's rebuild), ``launches_by_phase`` the simulator's and the train
-phase's (none: neither path has a TPU kernel in the reference).  The
+K3's rebuild), ``launches_by_mesh`` each kernel's per rank on each mesh
+layout's serve and rebuild (counted in each rank from just before the
+serve to the end of the rebuild), ``launches_by_phase``
+the simulator's and the train phase's (none: neither path has a TPU
+kernel in the reference).  The
 per-round check's launches are counted apart (``check_launches``).  A wrapper counts one launch per call, though K1 and
 K2 each make two CUDA launches (the split kernel and the merge).  Any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -300,6 +339,32 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 512, 6
 TRAIN_F32_TOL = 1e-4
 TRAIN_RESTART_TOL = 1e-6
 H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 peak
+
+# the mesh phase: 4 ranks on the one card as a (data 2, model 2) mesh,
+# gloo carrying their collectives through the host.  qwen2.5-32b at full
+# width, depth 64 -> 4, served under serve_rules and serve_manual_rules
+# at the serve phase's batch, page size and K over a shorter traffic (the
+# gloo collectives make a mesh step several times the one-device step's);
+# the pool (a multiple of the 4 ranks) never grows; the state after round
+# MESH_MID_ROUND is the one the mid-run logits and the megastep check
+# start from.  Then, manual rules only and at small depth, granite-moe (2
+# layers: experts over model), zamba2 (one group of 6 mamba layers and
+# the shared block: mamba head-sharded) and gemma3 (one 5:1 superblock),
+# each fed MESH_FAMILY_STEPS seeded tokens; and the DHT over the 4 ranks
+# (2^20 cells to live load 0.9, two churn rounds, card against CPU)
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_LAYERS = 4
+MESH_TRAFFIC = dict(max_len=512, requests=N_REQUESTS, prompt_len=(32, 128),
+                    max_new=(32, 128))
+MESH_PAGES = 320
+MESH_MID_ROUND = 6
+MESH_FAMILIES = [("moe", "granite-moe-1b-a400m", 2),
+                 ("zamba2", "zamba2-1.2b", 6), ("gemma3", "gemma3-12b", 6)]
+MESH_FAMILY_STEPS = 40
+MESH_DHT = dict(m_global=1 << 20, load=0.9, batch=4096, slack=128,
+                churn_rounds=2)
+# a rank waiting longer than this in a collective fails the phase
+MESH_TIMEOUT_S = 180
 
 
 T0 = time.time()
@@ -1393,10 +1458,11 @@ def phase_sharded() -> None:
 # ---------------------------------------------------------------------------
 # Phase 6: the kernels at the main path's shapes.
 
-def sdpa_ms(q, pk, pv, bt, pos, PS, scales=None):
+def sdpa_ms(q, pk, pv, bt, pos, PS, scales=None, holes=False):
     """One ``scaled_dot_product_attention`` call over the same KV gathered
     contiguously per sequence (int8 pools dequantized to q's dtype; the
-    gather is not timed)."""
+    gather is not timed); with ``holes`` the mask also drops the pages of
+    -1 block-table entries (a mesh rank's other ranks' pages)."""
     import torch
     import torch.nn.functional as F
     B, QH, D = q.shape
@@ -1414,8 +1480,10 @@ def sdpa_ms(q, pk, pv, bt, pos, PS, scales=None):
     v = gather(pv, None if scales is None else scales[1])
     k = k.permute(0, 2, 1, 3).repeat_interleave(QH // KH, dim=1)
     v = v.permute(0, 2, 1, 3).repeat_interleave(QH // KH, dim=1)
-    mask = (torch.arange(S, device=q.device)[None, :]
-            <= pos[:, None])[:, None, None, :]
+    mask = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+    if holes:
+        mask = mask & (bt[:, :MPs] >= 0).repeat_interleave(PS, 1)[:, :S]
+    mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     return graph_ms(lambda: F.scaled_dot_product_attention(
         q4, k, v, attn_mask=mask), 100)
@@ -1823,6 +1891,561 @@ def phase_families(main_cfg, main_params, checks):
         del res, params
         torch.cuda.empty_cache()
     return by_family, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: serving on a device mesh, 4 ranks sharing the one card.
+
+def mesh_config(table: str = "serve_rules", arch: str = ARCH,
+                layers: int = MESH_LAYERS):
+    """The mesh phase's config: full published width, depth cut to
+    ``layers``, K1 on; ``tp_impl="manual"`` for the fused manual rules."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              fused_kernel=True)
+    if table == "serve_manual_rules":
+        cfg = dataclasses.replace(cfg, tp_impl="manual")
+    return cfg
+
+
+def mesh_batcher(cfg, params, rules):
+    """``ContinuousBatcher`` over ``MESH_TRAFFIC`` at the serve phase's
+    geometry, on one device (``rules=None``) or on this rank of the mesh;
+    the pool (``MESH_PAGES``, a multiple of the 4 ranks) never grows."""
+    from repro_torch.launch.serve import ContinuousBatcher
+    from repro_torch.serving.sched import Scheduler, synthetic_workload
+    tr = MESH_TRAFFIC
+    sched = Scheduler(slots=BATCH, page_size=PAGE_SIZE,
+                      max_len=tr["max_len"], megastep_k=MEGASTEP)
+    srv = ContinuousBatcher(cfg, params, batch=BATCH, max_len=tr["max_len"],
+                            page_size=PAGE_SIZE, megastep_k=MEGASTEP,
+                            verify_block_table=True, scheduler=sched,
+                            n_pages=MESH_PAGES, auto_refill=False,
+                            seed=SEED, rules=rules,
+                            device=DEV if rules is None else None)
+    sched.submit_many(synthetic_workload(
+        tr["requests"], vocab_size=cfg.vocab_size, max_len=tr["max_len"],
+        seed=SEED, prompt_len=tr["prompt_len"], max_new=tr["max_new"]))
+    return srv
+
+
+def table_words(state):
+    """A state's page table and block table on the host."""
+    t = state["table"]
+    return (t.table.cpu(), int(t.num_keys), int(t.num_tombs),
+            state["block_table"].cpu())
+
+
+def mesh_serve(srv, tables=None):
+    """Serve ``srv`` to the end; with ``tables`` (the one-device run's per
+    round), each round's page table and block table must equal it bit for
+    bit.  Returns the per-round tables, the state after round
+    ``MESH_MID_ROUND`` (with its next tokens), the stats, the sampled
+    tokens and the peak: layer 0's pools, the positions and the block
+    table of the state with the most live pages (the table is replicated,
+    so every rank takes the same round)."""
+    import torch
+    from repro_torch.device import SYNC_STATS
+    from repro_torch.dist import collectives as C
+    from repro_torch.serving import engine as EG
+    inner, megasteps, tokens = srv.mega_fn, 0, 0
+
+    def counted(params, state, *args):
+        nonlocal megasteps, tokens
+        p0 = state["pos"]
+        toks, st = inner(params, state, *args)
+        tokens += int((st["pos"] - p0).sum())
+        megasteps += 1
+        return toks, st
+    srv.mega_fn = counted
+    syncs0, coll0 = SYNC_STATS["host_syncs"], dict(C.COLLECTIVE_STATS)
+    seen, mid, rounds, secs = [], None, 0, 0.0
+    peak, peak_live = None, -1
+    torch.cuda.reset_peak_memory_stats()
+    while not srv.sched.drained:
+        if rounds >= 400:
+            raise AssertionError("mesh serve did not drain in 400 rounds")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step_round()
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        words = table_words(srv.state)
+        if tables is not None:
+            ref = tables[rounds] if rounds < len(tables) else None
+            if ref is None or not (torch.equal(words[0], ref[0])
+                                   and words[1:3] == ref[1:3]
+                                   and torch.equal(words[3], ref[3])):
+                raise AssertionError(f"round {rounds}: the page table "
+                                     f"differs from the one-device run's")
+        seen.append(words)
+        if words[1] > peak_live and bool(srv.state["active"].any()):
+            pools = srv.state["pools"]
+            peak_live = words[1]
+            peak = dict(pk=pools.k[0].clone(), pv=pools.v[0].clone(),
+                        pos=srv.state["pos"].clone(),
+                        block_table=srv.state["block_table"].clone(),
+                        live_pages=peak_live, round=rounds)
+        rounds += 1
+        if rounds == MESH_MID_ROUND:
+            mid = (EG.clone_state(srv.state), srv.tokens.clone())
+    if tables is not None and rounds != len(tables):
+        raise AssertionError(f"{rounds} rounds, the one-device run took "
+                             f"{len(tables)}")
+    st = srv.sched.summary()
+    if st["completed"] != MESH_TRAFFIC["requests"] or st["aborts"] or \
+            st["pool_grows"]:
+        raise AssertionError(f"mesh serve: {st}")
+    stats = dict(rounds=rounds, megasteps=megasteps, token_steps=tokens,
+                 seconds=secs, tokens_per_s=tokens / secs,
+                 host_syncs_per_token=(SYNC_STATS["host_syncs"] - syncs0)
+                 / tokens,
+                 collectives_per_token=(C.COLLECTIVE_STATS["calls"]
+                                        - coll0["calls"]) / tokens,
+                 staged_per_token=(C.COLLECTIVE_STATS["staged"]
+                                   - coll0["staged"]) / tokens,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 completed=st["completed"], aborts=st["aborts"],
+                 pool_grows=st["pool_grows"])
+    sampled = {r.req_id: list(r.sampled) for r in srv.sched.finished}
+    return seen, mid, stats, sampled, peak
+
+
+def state_to(state, device):
+    """A decode state's tensors on ``device``."""
+    return {k: (type(v)(*(t.to(device) for t in v)) if isinstance(v, tuple)
+                else v.to(device)) for k, v in state.items()}
+
+
+def forced_tokens(cfg, steps: int):
+    import numpy as np
+    return np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (BATCH, steps)).astype(np.int32)
+
+
+def forced_run(cfg, params, rules, steps: int):
+    """``steps`` single serve steps from a fresh state, fed the seeded
+    tokens at positions 0, 1, ...; returns the last step's logits and
+    the state."""
+    import torch
+    from repro_torch.serving import engine as EG
+    toks = torch.from_numpy(forced_tokens(cfg, steps)).to(DEV)
+    max_len = MESH_TRAFFIC["max_len"]
+    state, _ = EG.make_decode_state(cfg, BATCH, max_len, rules=rules,
+                                    page_size=PAGE_SIZE,
+                                    device=DEV if rules is None else None)
+    step = EG.make_serve_step(cfg, S_max=max_len, rules=rules,
+                              page_size=PAGE_SIZE)
+    for t in range(steps):
+        logits, state = step(params, *step_args(cfg, state,
+                                                toks[:, t:t + 1]))
+    return logits, state, toks[:, -1:]
+
+
+def rel_err_live(a, b, live) -> float:
+    a, b = a[live].float(), b[live].float()
+    return float((a - b).norm() / b.norm())
+
+
+def mesh_reference() -> dict:
+    """The one-device runs the mesh is held to, on the card: the main
+    config served (``mesh_batcher``), its tables every round, the state
+    after round ``MESH_MID_ROUND`` and one serve step's logits on it; and
+    each of ``MESH_FAMILIES`` fed ``MESH_FAMILY_STEPS`` seeded tokens (the
+    last step's logits).  Weights from the seed, freed on return."""
+    import torch
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import engine as EG
+    cfg = mesh_config()
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    srv = mesh_batcher(cfg, params, None)
+    tables, (mid, mid_tok), stats, sampled, _ = mesh_serve(srv)
+    step = EG.make_serve_step(cfg, S_max=MESH_TRAFFIC["max_len"],
+                              page_size=PAGE_SIZE)
+    logits, _ = step(params, *step_args(cfg, EG.clone_state(mid), mid_tok))
+    out = {"tables": tables, "mid": state_to(mid, "cpu"),
+           "mid_tokens": mid_tok.cpu(), "mid_logits": logits.cpu(),
+           "stats": stats, "sampled": sampled, "families": {}}
+    del srv, params, mid
+    torch.cuda.empty_cache()
+    for run, arch, layers in MESH_FAMILIES:
+        fcfg = mesh_config("serve_rules", arch, layers)
+        params = get_model(fcfg).init(
+            fcfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        logits, _, _ = forced_run(fcfg, params, None, MESH_FAMILY_STEPS)
+        out["families"][run] = logits.cpu()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_params(cfg, rules):
+    """This rank's pieces of the seeded weights: the whole tree drawn on
+    the card from the seed (the one-device run's bits), cut with
+    ``engine.mesh_param_specs`` and freed."""
+    import torch
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import engine as EG
+    full = get_model(cfg).init(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    params = local_shard(full, EG.mesh_param_specs(cfg, full, rules),
+                         rules.mesh)
+    del full
+    torch.cuda.empty_cache()
+    return params
+
+
+def mesh_megastep_bits(cfg, params, rules, state, tokens):
+    """On the mesh: one K-token megastep and K single greedy steps (with
+    the abort latch) from clones of one state give the same tokens and
+    every state leaf bit for bit."""
+    import torch
+    from repro_torch.serving import engine as EG
+    max_len = MESH_TRAFFIC["max_len"]
+    step = EG.make_serve_step(cfg, S_max=max_len, rules=rules,
+                              page_size=PAGE_SIZE)
+    st, tok, ref = EG.clone_state(state), tokens.clone(), []
+    for _ in range(MEGASTEP):
+        lg, st = step(params, *step_args(cfg, st, tok))
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        tok = torch.where(st["aborted"][:, None], tok, nxt)
+        ref.append(tok[:, 0])
+    mega = EG.make_serve_megastep(cfg, S_max=max_len, K=MEGASTEP,
+                                  rules=rules, page_size=PAGE_SIZE)
+    mt, ms = mega(params, EG.clone_state(state), tokens.clone())
+    leaves = [(k, x, y) for k in ms
+              for x, y in (zip(ms[k], st[k]) if isinstance(ms[k], tuple)
+                           else [(ms[k], st[k])])]
+    diff = [k for k, x, y in leaves if not torch.equal(x, y)]
+    if not torch.equal(mt, torch.stack(ref, dim=1)) or diff:
+        raise AssertionError(f"{cfg.name}: the megastep differs from "
+                             f"{MEGASTEP} single steps: leaves {diff}")
+    return True
+
+
+def mesh_dht(rank: int) -> dict:
+    """The mesh DHT over the 4 ranks (one axis), ``MESH_DHT``: a
+    2^20-cell table filled to live load 0.9 in batches of 4096 requests a
+    rank, then churn rounds (a batch of deletes of live keys and inserts
+    of fresh ones, then one of lookups, half live, half absent), the same
+    ops on a card table and on a CPU table over the same process group.
+    Each rank's keys are its own, so a Python set per rank models them
+    exactly: every answer must equal the model's, overflowed requests (-1)
+    are retried, and the card's shard words must equal the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sharded as SHT
+    from repro_torch.core.spec import OP_DELETE, OP_INSERT, OP_LOOKUP
+    from repro_torch.launch.mesh import make_mesh
+    cfg = MESH_DHT
+    mesh = make_mesh((4,), ("model",), DEV)
+    S, B = 4, cfg["batch"]
+    cap = B // S + cfg["slack"]
+    m = cfg["m_global"]
+    rng = np.random.default_rng(SEED + 31)
+    per_rank = int(cfg["load"] * m) // S
+    churn = cfg["churn_rounds"] * B // 2
+    universe = rng.choice(1 << 27, size=S * (per_rank + 2 * churn + B),
+                          replace=False).reshape(S, -1)[rank]
+    fill = universe[:per_rank]
+    fresh = universe[per_rank:per_rank + churn]
+    absent = universe[per_rank + churn:]
+    st_card, apply = SHT.make_sharded_table(mesh, "model", m, cap)
+    st_cpu = SHT.create_sharded(1, m // S, 0, device="cpu")
+    live, stats = set(), {"batches": 0, "overflowed": 0, "card_s": 0.0,
+                          "cpu_s": 0.0}
+
+    def run(ops, keys):
+        """One batch on both tables; returns the applied mask."""
+        nonlocal st_card, st_cpu
+        t0 = time.perf_counter()
+        st_card, ret, ovf = apply(st_card, torch.from_numpy(ops).to(DEV),
+                                  torch.from_numpy(keys).to(DEV))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st_cpu, ret_c, ovf_c = apply(st_cpu, torch.from_numpy(ops),
+                                     torch.from_numpy(keys))
+        stats["card_s"] += t1 - t0
+        stats["cpu_s"] += time.perf_counter() - t1
+        ret, ovf = ret.cpu().numpy(), ovf.cpu().numpy()
+        if not (np.array_equal(ret, ret_c.numpy())
+                and np.array_equal(ovf, ovf_c.numpy())):
+            raise AssertionError("mesh DHT: card and CPU answers differ")
+        for o, k, r, f in zip(ops, keys, ret, ovf):
+            k = int(k)
+            if f:
+                if r != -1:
+                    raise AssertionError("overflowed request answered")
+                continue
+            want = {OP_INSERT: int(k not in live), OP_DELETE: int(k in live),
+                    OP_LOOKUP: int(k in live)}[int(o)]
+            if r != want:
+                raise AssertionError(f"mesh DHT: op {o} key {k} returned "
+                                     f"{r}, the set model {want}")
+            if o == OP_INSERT:
+                live.add(k)
+            elif o == OP_DELETE:
+                live.discard(k)
+        stats["batches"] += 1
+        stats["overflowed"] += int(ovf.sum())
+        return ~ovf
+
+    def drain(ops, keys):
+        """All of (ops, keys) in batches of B, overflow retried.  Every
+        rank runs the same number of batches (the collectives pair up):
+        the count is agreed by an all-reduce of the pending lengths."""
+        from repro_torch.dist import collectives as C
+        pending_o, pending_k = ops, keys
+        while True:
+            n = int(C.pmax(torch.tensor([len(pending_k)]), "model"))
+            if n == 0:
+                return
+            o = np.full(B, OP_LOOKUP, np.int32)
+            k = absent[-B:].astype(np.int64).copy()
+            take = min(B, len(pending_k))
+            o[:take], k[:take] = pending_o[:take], pending_k[:take]
+            applied = run(o, k)
+            again = ~applied[:take]
+            pending_o = np.concatenate([pending_o[:take][again],
+                                        pending_o[take:]])
+            pending_k = np.concatenate([pending_k[:take][again],
+                                        pending_k[take:]])
+
+    t0 = time.perf_counter()
+    drain(np.full(per_rank, OP_INSERT, np.int32), fill.astype(np.int64))
+    fill_s = time.perf_counter() - t0
+    for r in range(cfg["churn_rounds"]):
+        gone = np.array(sorted(live))[rng.permutation(len(live))[:B // 2]]
+        new = fresh[r * (B // 2):(r + 1) * (B // 2)]
+        drain(np.concatenate([np.full(B // 2, OP_DELETE, np.int32),
+                              np.full(B // 2, OP_INSERT, np.int32)]),
+              np.concatenate([gone, new]).astype(np.int64))
+        look = np.concatenate([np.array(sorted(live))[:B // 2],
+                               absent[:B // 2]]).astype(np.int64)
+        drain(np.full(B, OP_LOOKUP, np.int32), look)
+    if not (torch.equal(st_card.table.cpu(), st_cpu.table)
+            and torch.equal(st_card.num_keys.cpu(), st_cpu.num_keys)
+            and torch.equal(st_card.num_tombs.cpu(), st_cpu.num_tombs)):
+        raise AssertionError("mesh DHT: the card's shard differs from the "
+                             "CPU run's")
+    return dict(m_global=m, shards=S, batch=B, capacity=cap,
+                live_keys=len(live), shard_keys=int(st_card.num_keys[0]),
+                shard_tombs=int(st_card.num_tombs[0]),
+                shard_load=(int(st_card.num_keys[0])
+                            + int(st_card.num_tombs[0])) / (m // S),
+                fill_s=fill_s, **stats)
+
+
+def mesh_rank(rank: int, ref: dict) -> dict:
+    """One rank of the (data 2, model 2) mesh on the card: for each rule
+    set, qwen2.5-32b served at full width over ``MESH_TRAFFIC`` with its
+    tables held to the one-device run's every round; the one-device
+    mid-run state cut into this rank's pieces (``engine.shard_state``)
+    re-hashed into a 2x pool on the mesh through K3, equal bit for bit to
+    this rank's piece of the one-device re-hash (``find_batch``); the
+    launches counted over the serve and that rebuild; one step's logits
+    on the mid-run state held to the one-device step's, and the megastep
+    against K single steps; then the families (manual rules) and the
+    DHT."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import engine as EG
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, DEV)
+    wrappers = kernel_wrappers()
+    checks = {k: 0 for k in wrappers}
+    out = {"rank": rank}
+    for table in ("serve_rules", "serve_manual_rules"):
+        cfg = mesh_config(table)
+        rules = getattr(SH, table)(mesh)
+        params = mesh_params(cfg, rules)
+        srv = mesh_batcher(cfg, params, rules)
+        for w in wrappers.values():
+            w.launches = 0
+        _, _, stats, sampled, peak = mesh_serve(srv, ref["tables"])
+        _, axes = EG.make_decode_state(cfg, BATCH, MESH_TRAFFIC["max_len"],
+                                       rules=rules, page_size=PAGE_SIZE,
+                                       n_pages=MESH_PAGES)
+        mid = EG.shard_state(cfg, ref["mid"], axes, rules)
+        grown = EG.rebuild_page_table(EG.clone_state(mid),
+                                      n_pages=2 * MESH_PAGES,
+                                      use_kernel=True)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        n_paged, _ = EG._n_attn_layers(cfg)
+        want = {"K1": n_paged * MEGASTEP * stats["megasteps"], "K2": 0,
+                "K3": 1}
+        if launches != want:
+            raise AssertionError(f"{table}: launches {launches}, expected "
+                                 f"{want}")
+        one = EG.rebuild_page_table(state_to(ref["mid"], DEV),
+                                    n_pages=2 * MESH_PAGES, use_kernel=False)
+        piece = EG.shard_state(cfg, one, axes, rules)
+        diff = [k for k in piece for a, b in (
+            zip(grown[k], piece[k]) if isinstance(piece[k], tuple)
+            else [(grown[k], piece[k])]) if not torch.equal(a, b)]
+        if diff:
+            raise AssertionError(f"{table}: the mesh rebuild differs from "
+                                 f"the one-device rebuild's piece: {diff}")
+        rebuild = dict(n_pages_from=MESH_PAGES, n_pages_to=2 * MESH_PAGES,
+                       live_pages=int(one["table"].num_keys),
+                       local_pages=int(grown["pools"].k.shape[1]),
+                       k3_launches=launches["K3"], equal=True)
+        del grown, one, piece
+        tok = ref["mid_tokens"].to(DEV)
+        with uncounted(checks):
+            step = EG.make_serve_step(cfg, S_max=MESH_TRAFFIC["max_len"],
+                                      rules=rules, page_size=PAGE_SIZE)
+            logits, _ = step(params, *step_args(cfg, EG.clone_state(mid),
+                                                tok))
+            live = ref["mid"]["active"] & ~ref["mid"]["aborted"]
+            rel = rel_err_live(logits.cpu(), ref["mid_logits"], live)
+            if not rel <= LOGITS_REL_TOL:
+                raise AssertionError(f"{table}: mid-run logits relative "
+                                     f"error {rel} > {LOGITS_REL_TOL}")
+            mesh_megastep_bits(cfg, params, rules, mid, tok)
+        out[table] = dict(
+            stats, launches=launches, midrun_rel_err=rel, rebuild=rebuild,
+            report=EG.fallback_report(cfg, rules), sampled=sampled,
+            k1=None if rank else dict(
+                pk=peak["pk"].cpu(), pv=peak["pv"].cpu(),
+                pos=peak["pos"].cpu(),
+                bt=EG._local_block_table(
+                    peak["block_table"], EG._chip_idx(
+                        EG._ops(cfg, rules).page_axes()),
+                    peak["pk"].shape[0]).cpu(),
+                QH=rank_q_heads(cfg, rules), round=peak["round"],
+                live_pages=peak["live_pages"]))
+        del srv, params, mid, step, peak
+        torch.cuda.empty_cache()
+    fams = {}
+    for run, arch, layers in MESH_FAMILIES:
+        cfg = mesh_config("serve_manual_rules", arch, layers)
+        rules = SH.serve_manual_rules(mesh)
+        if EG.fallback_report(cfg, rules)["decode_tp"] != "ok":
+            raise AssertionError(f"{run}: {EG.fallback_report(cfg, rules)}")
+        params = mesh_params(cfg, rules)
+        with uncounted(checks):
+            logits, state, tok = forced_run(cfg, params, rules,
+                                            MESH_FAMILY_STEPS)
+            live = torch.ones(BATCH, dtype=torch.bool)
+            rel = rel_err_live(logits.cpu(), ref["families"][run], live)
+            if not rel <= LOGITS_REL_TOL:
+                raise AssertionError(f"{run}: logits relative error {rel} "
+                                     f"> {LOGITS_REL_TOL}")
+            mesh_megastep_bits(cfg, params, rules, state, tok)
+        fams[run] = dict(arch=arch, layers=layers, rel_err=rel,
+                         report=EG.fallback_report(cfg, rules))
+        del params, state
+        torch.cuda.empty_cache()
+    out["families"] = fams
+    out["dht"] = mesh_dht(rank)
+    out["checks"] = checks
+    return out
+
+
+def rank_q_heads(cfg, rules) -> int:
+    """The q heads a rank's K1 call takes: its head shard in the fused
+    manual layout, all of them (all-gathered) on the gspmd step."""
+    from repro_torch.serving import engine as EG
+    return (cfg.n_q // rules.mesh.shape["model"]
+            if EG._manual_decode_ok(cfg, rules) else cfg.n_q)
+
+
+def k1_mesh_row(table: str, k1: dict, launches: int) -> dict:
+    """K1 at a mesh rank's shape (rank 0's layer-0 pools and local block
+    table at the serve's peak state, a seeded query of its q heads): held to
+    the plain version and the K2 composition, timed alone on the card
+    beside its bound and SDPA over the same pages."""
+    import torch
+    from repro_torch.kernels.fused_decode import (fused_decode_kernel,
+                                                  fused_decode_plain,
+                                                  fused_decode_ref)
+    pk, pv = k1["pk"].to(DEV), k1["pv"].to(DEV)
+    bt, pos = k1["bt"].to(DEV), k1["pos"].to(DEV)
+    B, MP = bt.shape
+    _, PS, KH, D = pk.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    q = torch.randn((B, k1["QH"], D), generator=g, device=DEV).to(pk.dtype)
+    part = fused_decode_kernel(q, pk, pv, bt, pos, partials=True)
+    ref = fused_decode_plain(q, pk, pv, bt, pos, partials=True)
+    err = max(close(a, b, PARTIALS_TOL) for a, b in zip(part, ref))
+    if not torch.equal(fused_decode_kernel(q, pk, pv, bt, pos),
+                       fused_decode_ref(q, pk, pv, bt, pos)):
+        raise AssertionError(f"{table}: K1 != K2 composition")
+    (bound, by), _ = attention_bounds(q, pk, bt, pos)
+    ms = graph_ms(lambda: fused_decode_kernel(q, pk, pv, bt, pos,
+                                              partials=True), 100)
+    return {"layout": table, "B": B, "QH": k1["QH"], "KH": KH, "D": D,
+            "PS": PS, "MP": MP, "local_pages": pk.shape[0],
+            "round": k1["round"], "live_pages": k1["live_pages"],
+            "local_tokens": int(attention_tokens(pk, bt, pos)),
+            "launches_per_rank": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": graph_ms(lambda: fused_decode_plain(
+                q, pk, pv, bt, pos, partials=True), 10),
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "library_ms": sdpa_ms(q, pk, pv, bt, pos, PS, holes=True)}
+
+
+def attention_tokens(pk, bt, pos) -> int:
+    import torch
+    B, MP = bt.shape
+    PS = pk.shape[1]
+    live = (torch.arange(MP, device=bt.device)[None, :] * PS
+            <= pos[:, None]) & (bt >= 0)
+    return int((torch.clamp(pos[:, None] + 1 - torch.arange(
+        MP, device=bt.device)[None, :] * PS, 0, PS) * live).sum())
+
+
+def phase_mesh() -> dict:
+    """Phase 13 (module docstring): the one-device runs, then 4 ranks on
+    the card.  Returns the launches per rank on the mesh's serve paths
+    and K1's rows at the two mesh shapes."""
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.perf_counter()
+    ref = mesh_reference()
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    outs = run_spmd(mesh_rank, n, (ref,), device=DEV,
+                    timeout_s=MESH_TIMEOUT_S, threads=2)
+    rows, launches = [], {}
+    for table in ("serve_rules", "serve_manual_rules"):
+        r0 = outs[0][table]
+        for o in outs[1:]:
+            if o[table]["sampled"] != r0["sampled"] or \
+                    o[table]["launches"] != r0["launches"]:
+                raise AssertionError(f"{table}: rank {o['rank']}'s tokens "
+                                     f"or launches differ from rank 0's")
+        same = total = 0
+        for rid, toks in r0["sampled"].items():
+            total += len(toks)
+            same += sum(int(a == b) for a, b in zip(toks,
+                                                    ref["sampled"][rid]))
+        stats = {k: v for k, v in r0.items() if k not in ("sampled", "k1")}
+        emit("mesh", layout=table, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+             arch=ARCH, layers=MESH_LAYERS, batch=BATCH,
+             page_size=PAGE_SIZE, megastep=MEGASTEP, n_pages=MESH_PAGES,
+             traffic=MESH_TRAFFIC, tables_equal_every_round=True,
+             tokens_equal_across_ranks=True, megastep_bitwise=True,
+             token_agreement_vs_one_device=same / total,
+             peak_mem_gib_by_rank=[o[table]["peak_mem_gib"] for o in outs],
+             one_device=ref["stats"], **stats)
+        launches[table] = r0["launches"]
+        rows.append(k1_mesh_row(table, r0["k1"], launches[table]["K1"]))
+    emit("mesh_families", **outs[0]["families"])
+    dht = [o["dht"] for o in outs]
+    if sum(d["shard_keys"] for d in dht) != sum(d["live_keys"] for d in dht):
+        raise AssertionError("mesh DHT: the shards' key counts do not add "
+                             "up to the ranks' live keys")
+    emit("mesh_dht", by_rank=dht)
+    emit("mesh_done", seconds=time.perf_counter() - t0,
+         reference_seconds=ref_s, k1_rows=rows)
+    return {"launches": launches, "rows": rows}
 
 
 def zero_launches() -> dict:
@@ -2280,6 +2903,13 @@ def main() -> int:
     phase_profile(cfg, params)
     del params
     torch.cuda.empty_cache()
+    mesh = phase_mesh()
+    for e, key in zip(kernels, ("K1", "K2", "K3")):
+        e["launches_by_mesh"] = {t: n[key]
+                                 for t, n in mesh["launches"].items()}
+    kernels[0]["mesh_shapes"] = mesh["rows"]
+    errs["K1"] = max([errs["K1"]] + [r["max_abs_err"] for r in mesh["rows"]])
+    kernels[0]["max_abs_err"] = errs["K1"]
     by_phase = {"simulator": phase_simulator(), "train": phase_train()}
     for e in kernels:
         key = {"fused_decode": "K1", "paged_attention": "K2",

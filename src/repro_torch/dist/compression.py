@@ -8,7 +8,7 @@ expectation.  Scales are per-tensor symmetric (absmax / 127) —
 round-to-nearest error is bounded by half a quantization step.
 
 The compressed all-reduce over a mesh axis (the reference's
-``tree_compressed_psum``) is ROADMAP item 22.
+``tree_compressed_psum``) is ROADMAP item 22b.
 """
 from __future__ import annotations
 

@@ -1,0 +1,96 @@
+"""Mesh construction and the SPMD launcher (PyTorch port of
+``launch/mesh.py``).
+
+The port's mesh is a real ``torch.distributed`` program: one process per
+rank, each holding only its own shards (``dist/collectives.Mesh``).
+``run_spmd`` starts the ranks ("spawn"), joins the process group over
+``gloo`` at ``tcp://localhost:<free port>`` with a timeout, runs one
+function on every rank and returns what each rank returned.  A rank that
+raises, or waits on a collective longer than the timeout, fails the whole
+call.  Ranks on the card share device 0 (gloo carries their collectives
+through the host, see ``dist/collectives``).
+
+``make_production_mesh`` returns the production shape as data only; it
+starts no process.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+import tempfile
+from typing import Any, Callable, List, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import collectives as C
+
+DEFAULT_TIMEOUT_S = 120
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> C.AbstractMesh:
+    """16x16 = 256 chips per pod; 2 pods = 512 chips multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return C.AbstractMesh(shape, axes)
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              device=None) -> C.Mesh:
+    """The named mesh over the initialised process group, bound as this
+    process's mesh; this rank's tensors live on the card unless
+    ``device="cpu"``."""
+    from repro_torch.device import resolve_device
+    mesh = C.Mesh(shape, axis_names, resolve_device(device))
+    C.set_mesh(mesh)
+    return mesh
+
+
+def make_host_mesh(data: int = 2, model: int = 2, device=None) -> C.Mesh:
+    """A (data, model) mesh over the process group's ranks, the data axis
+    cut to what the ranks allow, as the reference's."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data = min(data, max(1, n // model))
+    return make_mesh((data, model), ("data", "model"), device)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, fn, world: int, port: int, out_dir: str,
+               timeout_s: float, threads: int, device: str, args) -> None:
+    torch.set_num_threads(threads)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    out = fn(rank, *args)
+    torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
+    # no rank tears its connections down while another still uses them
+    dist.barrier()
+    C.set_mesh(None)
+    dist.destroy_process_group()
+
+
+def run_spmd(fn: Callable[..., Any], world: int, args=(), *,
+             device: str = "cpu", timeout_s: float = DEFAULT_TIMEOUT_S,
+             threads: int = 1) -> List[Any]:
+    """Run ``fn(rank, *args)`` on ``world`` spawned ranks joined in one
+    gloo process group; returns the ranks' return values (saved with
+    ``torch.save``, so tensors should be on the host) in rank order.
+    ``fn`` must be importable by name (a module-level function).  Raises
+    when a rank fails; a rank stuck in a collective fails after
+    ``timeout_s``."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(
+            _rank_main, args=(fn, world, _free_port(), out_dir, timeout_s,
+                              threads, device, tuple(args)),
+            nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(out_dir, f"{r}.pt"),
+                           weights_only=False) for r in range(world)]

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import obs as OBS
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import batched as BT
 from repro_torch.device import host_int, host_numpy, resolve_device
 from repro_torch.kernels import stats as KS
 from repro_torch.models.registry import get_model
@@ -64,7 +65,14 @@ class ContinuousBatcher:
     """Thin driver: B decode slots, one K-token megastep per round, all
     policy in ``scheduler``.  ``n_pages`` overcommits the page pool;
     ``auto_refill`` keeps an endless eviction-churn stream when no workload
-    is submitted.  Runs on ``device`` (the card unless ``"cpu"``)."""
+    is submitted.  Runs on ``device`` (the card unless ``"cpu"``).
+
+    With ``rules`` it runs SPMD on every rank of the bound mesh, on the
+    rank's ``params`` pieces (``engine.mesh_param_specs``) and on the
+    mesh's device.  Every rank runs the same scheduler, and each host
+    decision reads only replicated values (the sampled tokens, positions,
+    the table, ``aborted``, counters), so all ranks take the same branch
+    and no collective is left waiting."""
 
     def __init__(self, cfg, params, *, batch: int, max_len: int,
                  page_size: int, rules=None, seed: int = 0,
@@ -73,7 +81,8 @@ class ContinuousBatcher:
                  n_pages: int | None = None, auto_refill: bool = True,
                  tracer: OBS.Tracer | None = None, device=None):
         self.cfg, self.params = cfg, params
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if rules is None
+                       else rules.mesh.device)
         self.B, self.max_len, self.page_size = batch, max_len, page_size
         self.K = max(1, int(megastep_k))
         self.verify = verify_block_table
@@ -253,17 +262,7 @@ class ContinuousBatcher:
         previous occupant cannot pass the attention mask (slot s holds a
         position q = s mod W, and every stale q is refused); the ring
         reset keeps ``ring_pos`` equal to the reference's."""
-        idx = self._t(slots, torch.int64)
-        if "ssm" in self.state:
-            st = self.state["ssm"]
-            self.state["ssm"] = type(st)(*(t.index_fill(1, idx, 0)
-                                           for t in st))
-        if "ring_k" in self.state:
-            self.state["ring_k"][:, idx] = 0
-            self.state["ring_v"][:, idx] = 0
-            ring_pos = self.state["ring_pos"].clone()
-            ring_pos[idx] = -1
-            self.state["ring_pos"] = ring_pos
+        self.state = EG.reset_lanes(self.state, slots)
 
     def _emit(self, event: str, **fields):
         if self.tracer is not None:
@@ -316,7 +315,7 @@ class ContinuousBatcher:
                 # reactive safety net: grow the pool, re-hash, move the KV
                 # pages, rebuild the block table, clear the flags; the
                 # refused suffix re-issues at the frozen positions
-                n_pages = self.state["pools"].k.shape[1]
+                n_pages = BT.size(self.state["table"])
                 self.state = EG.rebuild_page_table(self.state,
                                                    n_pages=n_pages * 2,
                                                    strategy=self.strategy)
@@ -338,7 +337,7 @@ class ContinuousBatcher:
             health = None
             if "table" in self.state:
                 t = self.state["table"]
-                n = int(self.state["pools"].k.shape[1])
+                n = BT.size(t)
                 live, tombs = int(t.num_keys), int(t.num_tombs)
                 health = {
                     "live": live, "tombs": tombs, "n_cells": n,

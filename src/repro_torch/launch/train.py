@@ -8,7 +8,7 @@ Usage (CPU smoke):
 
 Without ``--device`` it trains on the CUDA card.  ``--layers N`` cuts the
 depth.  The reference's ``--rules`` (the mesh's sharding rules) is ROADMAP
-item 22.
+item 22b.
 """
 from __future__ import annotations
 

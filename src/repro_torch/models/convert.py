@@ -12,7 +12,8 @@ encdec's ``encoder``, ``decoder`` (with ``cross`` and ``ln_cross``) and
 ``enc_norm``.  The layouts are the same on both
 sides, so both compute the same function.  ``train_state_from_numpy`` does
 the same for a whole train state (parameters, AdamW moments, count).
-numpy only: nothing here imports JAX.
+On a mesh each rank converts only its own pieces (``specs``).  numpy
+only: nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -28,7 +29,16 @@ F32_LEAVES = {("moe", "router"), ("mamba", "A_log"), ("mamba", "dt_bias"),
               ("mamba", "D")}
 
 
-def from_numpy_tree(tree, cfg, device=None) -> Dict[str, Any]:
+def from_numpy_tree(tree, cfg, device=None, *, specs=None,
+                    mesh=None) -> Dict[str, Any]:
+    """With ``specs`` and ``mesh`` (a rank of a device mesh), the tree is
+    first cut into this rank's pieces (``dist/sharding.local_shard``, e.g.
+    with ``serving/engine.mesh_param_specs``), which land on the mesh's
+    device: the single-device run and every mesh get the same weights."""
+    if specs is not None:
+        from repro_torch.dist.sharding import local_shard
+        tree = local_shard(tree, specs, mesh)
+        device = mesh.device if device is None else device
     dev = resolve_device(device)
 
     def conv(x, dtype):

@@ -157,6 +157,20 @@ def attn_out_decode(p, o):
     return attn_out(p, o)
 
 
+def kv_head_slice(k, v, shard: int, kv_rep: int):
+    """This rank's KV head when KV heads are REPLICATED across a model
+    axis wider than ``n_kv`` (kv_rep = tp / n_kv > 1): k/v [B, n_kv, hd]
+    from replicated weights; model rank ``shard`` keeps original head
+    ``shard // kv_rep`` (one head per rank; the ranks holding the same
+    head serve disjoint q-head groups, so nothing is counted twice).
+    The identity when kv_rep == 1 (the weights were already
+    head-sharded)."""
+    if kv_rep <= 1:
+        return k, v
+    head = shard // kv_rep
+    return k[:, head:head + 1], v[:, head:head + 1]
+
+
 def self_attention(p, x, positions, cfg, *, window: int = 0,
                    mrope_positions=None, causal: bool = True):
     """Full-sequence self attention (prefill)."""

@@ -1,5 +1,5 @@
 """Mamba2 (SSD — state-space duality) block (PyTorch port of
-``models/ssm.py``), single device.
+``models/ssm.py``).
 
 Prefill runs the SSD chunked algorithm (arXiv:2405.21060): within a chunk
 of length Q everything is dense products; across chunks a small recurrent
@@ -7,9 +7,9 @@ state h [B,G,Hg,P,N] is carried by a Python loop over the chunks (the
 reference's ``lax.scan``).  Decode is the O(1)-per-token recurrence.  The
 in-projection is split into z / x / BC / dt matrices, as in the reference.
 
-The reference's decode can run on a head shard of the inner dimension
-inside a manual shard_map region (``tp_axis``); that is the mesh slice,
-ROADMAP item 22, and any ``tp_axis`` but ``None`` raises here.
+On a mesh the decode can run on a head shard of the inner dimension
+(``tp_axis``), completing the gated norm and the out projection with
+psums over that axis.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as C
 from repro_torch.models import nn
 
 
@@ -27,6 +28,13 @@ class MambaState(NamedTuple):
     h: torch.Tensor          # f32[B, G, Hg, P, N] SSD state
     conv_x: torch.Tensor     # [B, W-1, di]        conv tail, x stream
     conv_bc: torch.Tensor    # [B, W-1, 2*G*N]     conv tail, B/C streams
+
+
+MAMBA_STATE_AXES = MambaState(
+    h=("batch", None, "ssm_heads", None, None),
+    conv_x=("batch", None, "ssm_inner"),
+    conv_bc=("batch", None, None),
+)
 
 
 def mamba_init(cfg, dtype, generator: torch.Generator, device):
@@ -111,12 +119,25 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
     return torch.cat(ys, dim=1), h
 
 
-def _gate_norm_out(p, y, z, x_dtype):
-    """Mamba2 gated RMSNorm + out projection.  y, z [B,S,di]."""
+def _gate_norm_out(p, y, z, x_dtype, *, tp_axis=None, di_full=None):
+    """Mamba2 gated RMSNorm + out projection.  y, z [B,S,di].
+
+    With ``tp_axis``, y/z/norm/w_out carry this rank's ``di`` shard: the
+    RMS statistic is completed by a psum over the full width ``di_full``
+    and the row-parallel out projection psums its partial products in
+    f32, rounded once after the sum (as the reference: per-shard rounding
+    would drift from the replicated path, and the recurrence amplifies
+    it)."""
     y = y * F.silu(z.float())
-    var = (y * y).mean(dim=-1, keepdim=True)
+    if tp_axis is None:
+        var = (y * y).mean(dim=-1, keepdim=True)
+    else:
+        var = C.psum((y * y).sum(dim=-1, keepdim=True), tp_axis) / di_full
     y = (y * torch.rsqrt(var + 1e-6)).to(x_dtype) * p["norm"]
-    return y @ p["w_out"]
+    if tp_axis is None:
+        return y @ p["w_out"]
+    out = y.float() @ p["w_out"].float()
+    return C.psum(out, tp_axis).to(y.dtype)
 
 
 def _in_proj(p, x):
@@ -158,11 +179,15 @@ def mamba_forward(p, x, cfg, *, state: Optional[MambaState] = None,
 def mamba_decode_step(p, x, cfg, state: MambaState, *,
                       tp_axis: Optional[str] = None
                       ) -> Tuple[torch.Tensor, MambaState]:
-    """One-token decode.  x [B,1,d] -> ([B,1,d], state')."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "the head-sharded mamba decode (tp_axis) runs over a mesh: "
-            "ROADMAP item 22")
+    """One-token decode.  x [B,1,d] -> ([B,1,d], state').
+
+    ``tp_axis``: run on this rank's per-head SHARD of the inner dim (the
+    mesh decode paths of ``serving/engine``): the per-head params
+    (w_z/w_x/w_dt/conv_x/A/D/norm) and the recurrent state arrive
+    column-sharded, the shared B/C streams replicated (G == 1, which
+    ``dist/tp.decode_ssm_tp`` requires), and ``w_out`` is row-parallel with
+    the psums in ``_gate_norm_out``.  The local dims come from the param
+    shapes, so the same code runs replicated (``tp_axis=None``)."""
     Bsz = x.shape[0]
     N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
     di = p["w_x"].shape[1]
@@ -188,7 +213,8 @@ def mamba_decode_step(p, x, cfg, state: MambaState, *,
     # the prefill path's round trip through the activation dtype
     # (ssd_chunked casts y), so decode tracks forward closely
     y = y.to(x.dtype).float()
-    out = _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype)
+    out = _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
+                         tp_axis=tp_axis, di_full=cfg.d_inner)
     return out, MambaState(h=h_new, conv_x=new_tail_x, conv_bc=new_tail_bc)
 
 

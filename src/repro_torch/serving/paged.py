@@ -1,13 +1,14 @@
 """Paged flash-decoding attention over the hash-table page pool (PyTorch
-port of ``serving/paged.py``, single device).
+port of ``serving/paged.py``).
 
 Layout: the physical page pool is [n_pages, page_size, n_kv, hd] per layer
 (stacked [L, ...] in the engine state).  The pages of all sequences are
 compacted into one [CAP] list, attended against their owning sequence's
-query, then merged per sequence by log-sum-exp.  The JAX package runs
-these functions per chip inside ``shard_map``; the port has one device, so
-``chip_idx`` is 0 and ``npr`` is the whole pool (``merge_global`` takes
-``axis_names=()``).
+query, then merged per sequence by log-sum-exp.  On a mesh each rank holds
+``npr`` pages of the pool (page ``slot`` lives on rank ``slot // npr``, row
+``slot % npr``), runs these functions on its own pages with its
+``chip_idx``, and ``merge_global`` merges the ranks' partials; on one
+device ``chip_idx`` is 0 and ``npr`` is the whole pool.
 
 ``write_token_kv`` updates the pools IN PLACE (``index_put_``) instead of
 returning new arrays: a decode step writes one token per lane, and copying
@@ -22,6 +23,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.device import SYNC_STATS
+from repro_torch.dist import collectives as C
 
 NEG_INF = -1e30
 
@@ -41,26 +43,23 @@ def round_pages(n: int, n_chips: int) -> int:
     return max(1, -(-n // n_chips)) * n_chips
 
 
-def make_pools(num_layers: int, n_pages: int, page_size: int, n_kv: int,
-               hd: int, dtype, *, device=None) -> PagedPools:
-    shp = (num_layers, n_pages, page_size, n_kv, hd)
-    return PagedPools(k=torch.zeros(shp, dtype=dtype, device=device),
-                      v=torch.zeros(shp, dtype=dtype, device=device))
-
-
-def make_pool_scales(num_layers: int, n_pages: int, page_size: int,
-                     n_kv: int, *, device=None) -> PoolScales:
-    shp = (num_layers, n_pages, page_size, n_kv)
-    return PoolScales(k=torch.ones(shp, dtype=torch.bfloat16, device=device),
-                      v=torch.ones(shp, dtype=torch.bfloat16, device=device))
-
-
 def quantize_kv(x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, n_kv, hd] -> (int8 values, bf16 scales [B, n_kv])."""
     xf = x.float()
     s = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
     q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
     return q, s.to(torch.bfloat16)
+
+
+# The pools' logical axes: the gspmd layout shards the page dim over every
+# mesh axis; the fused manual layout (serve_manual_rules) shards pages over
+# (pod, data) and KV heads over model, each rank attending its own heads
+# end to end (the head dim tiled to n_kv·rep when the model axis is wider
+# than n_kv, dist/tp.decode_kv_rep).
+POOL_AXES = ("layer", "pages", None, None, None)
+POOL_SCALE_AXES = ("layer", "pages", None, None)
+POOL_AXES_TP = ("layer", "pages", None, "kv", None)
+POOL_SCALE_AXES_TP = ("layer", "pages", None, "kv")
 
 
 class LocalPages(NamedTuple):
@@ -206,12 +205,18 @@ def attend_local(q_all, pool_k_l, pool_v_l, lp: LocalPages, positions,
 
 
 def merge_global(o, m, l, axis_names=()) -> torch.Tensor:
-    """lse-weighted merge across devices; ``axis_names=()`` is the single
-    device case (normalize only).  Multi-device merging is ROADMAP item
-    22."""
+    """lse-weighted merge of the (o, m, l) partials across the ranks of
+    ``axis_names`` (``()``: one device, normalize only), as the reference:
+    pmax of m, weights ``exp(m - m_g)``, the o partial summed in bf16
+    (half the wire of f32; m and l stay f32, hd times smaller).  A rank
+    that owns no page of a sequence holds m = -1e30, l = 0, so its weight
+    is 0 and ``exp`` stays finite."""
     if axis_names:
-        raise NotImplementedError(
-            "merge_global across devices is not ported (ROADMAP item 22)")
+        m_g = C.pmax(m, axis_names)
+        w = torch.exp(m - m_g)
+        o = C.psum((o * w[..., None]).to(torch.bfloat16),
+                   axis_names).float()
+        l = C.psum(l * w, axis_names)
     return o / l.clamp_min(1e-20)[..., None]
 
 

@@ -21,7 +21,7 @@ dtypes.
   ``os.replace``, so a re-commit with a new shard manifest is atomic too).
 
 The reference's mesh-aware restore (``rules=``, re-sharding every leaf by
-its logical axes) is ROADMAP item 22; here every leaf returns to the
+its logical axes) is ROADMAP item 22b; here every leaf returns to the
 device of the template's leaf.
 """
 from __future__ import annotations

@@ -4,7 +4,7 @@ activation remat per layer.
 
 The reference's ``make_train_step_manual_pod`` (the cross-pod step with
 int8 error-feedback gradient compression) and ``init_pod_error_buffers``
-need the mesh, ROADMAP item 22.
+need the mesh, ROADMAP item 22b.
 """
 from __future__ import annotations
 

@@ -263,18 +263,20 @@ def test_rebuild_per_strategy_matches_reference(params, strategy):
 
 
 def test_unported_paths_raise():
-    """A mesh raises and names its ROADMAP item; every family is served
-    (the ssm, hybrid and encdec families since slice 6) and the fallback
-    reasons keep the reference's strings, the ssm and encdec ones
-    included.  A hybrid depth below one group of mamba layers is refused
-    (the reference's decode would find no page table)."""
+    """The one family the mesh does not serve (encdec, whose encoder
+    prefill over sharded weights is ROADMAP item 22b) raises and names its
+    item; every family is served on one device and the fallback reasons
+    keep the reference's strings, the ssm and encdec ones included.  A
+    hybrid depth below one group of mamba layers is refused (the reference's
+    decode would find no page table)."""
     from repro.configs import get_smoke_config as j_smoke_cfg
     from repro_torch.configs import get_smoke_config as smoke
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="22"):
-        EG.make_serve_step(tc, S_max=16, rules=object())
-    with pytest.raises(NotImplementedError, match="22"):
-        EG.make_decode_state(tc, 2, 16, rules=object(), device="cpu")
+    ec = smoke("seamless-m4t-large-v2")
+    with pytest.raises(NotImplementedError, match="22b"):
+        EG.make_serve_step(ec, S_max=16, rules=object())
+    with pytest.raises(NotImplementedError, match="22b"):
+        EG.make_decode_state(ec, 2, 16, rules=object(), device="cpu")
     jc, _ = _cfgs()
     assert EG.fallback_report(tc) == JEG.fallback_report(jc)
     assert EG.fallback_report(dataclasses.replace(tc, fused_kernel=True)) \

@@ -320,9 +320,12 @@ def test_wrappers_raise_without_a_kernel_and_on_bad_input():
 def test_kernels_match_plain_versions_on_the_card():
     """On a CUDA device: K1 and K2 within tolerance of their plain
     versions, K1 == the K2 composition bit for bit (also on the edges of
-    the split layout), K3 == find_batch at every lane count, also on
-    tables of 1, 3, 5, 192 and 200000 cells and for int64 keys >= 2^32
-    and negative keys."""
+    the split layout), K1's partials on a mesh rank's pages at the two
+    mesh shapes of qwen2.5-32b (the manual layout on (data 2, model 2):
+    24 q heads over 4 KV heads, half the pages; the gspmd layout on 4
+    ranks: 48 over 8, a quarter of the pages), K3 == find_batch at every
+    lane count, also on tables of 1, 3, 5, 192 and 200000 cells and for
+    int64 keys >= 2^32 and negative keys."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     from repro_torch.kernels.fused_decode import (fused_decode_plain,
@@ -350,6 +353,28 @@ def test_kernels_match_plain_versions_on_the_card():
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=2e-3, atol=2e-3)
     assert torch.equal(fused_decode_kernel(*args), fused_decode_ref(*args))
+    # a mesh rank: its npr pages of the pool and the rank-local raw block
+    # table (other ranks' pages -1); a lane with no page here must give
+    # m = -1e30 and l = 0 so the cross-rank merge weight stays finite
+    from repro_torch.serving.engine import _local_block_table
+    for QH, KH, n_shards, chip in ((24, 4, 2, 1), (48, 8, 4, 2)):
+        q, k, v, bt, pos = decode_inputs(8, QH, KH, 128, 640, 16, 64,
+                                         seed=3 + chip, holes=True)
+        npr = 640 // n_shards
+        pos[0] = 3
+        bt[0, 0] = chip * npr + npr - 1           # lane 0: one local page
+        bt[1, :] = np.where(bt[1] // npr == chip, -1, bt[1])  # lane 1: none
+        lbt = _local_block_table(torch.from_numpy(bt), chip, npr)
+        kl, vl = (x[chip * npr:(chip + 1) * npr] for x in (k, v))
+        args = [to_t(x).cuda() for x in (q, kl, vl, lbt, pos)]
+        args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+        got = fused_decode_kernel(*args, partials=True)
+        want = fused_decode_plain(*args, partials=True)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=2e-3, atol=2e-3)
+        assert bool((got[1][1] == -1e30).all()) and \
+            bool((got[2][1] == 0).all()) and bool(got[0].isfinite().all())
     _, port, keys = _table(4096, 3600, 7, 0, delete_every=5)
     port = TBT.HashTable(*(t.cuda() for t in port))
     qk = torch.from_numpy(keys.astype(np.int64)).cuda()

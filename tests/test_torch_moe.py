@@ -154,12 +154,31 @@ def test_convert_keeps_router_f32():
 
 
 def test_moe_mesh_paths_raise():
-    _, tc = _moe_cfgs("granite-moe-1b-a400m")
-    x = torch.zeros((1, 2, tc.d_model))
-    with pytest.raises(NotImplementedError, match="22"):
-        moe.moe_apply({}, x, tc, rules=object())
-    with pytest.raises(NotImplementedError, match="22"):
-        moe.moe_decode_local({}, x, tc)
+    """The mesh paths on a one-rank mesh, where every
+    collective is the identity: ``moe_apply`` under both serve and train
+    rules and the manual region's ``moe_decode_local`` give the
+    single-device output bit for bit (its aux too), and without a bound
+    mesh the collectives raise rather than run on one device quietly.
+    The 8-rank paths are ``tests/test_torch_mesh.py``'s."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import serve_rules, train_rules
+    from repro_torch.launch.mesh import make_mesh
+    jc, tc = _moe_cfgs("granite-moe-1b-a400m")
+    jp, _ = j_moe.moe_init(jax.random.PRNGKey(0), jc, jnp.float32)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 4, tc.d_model)).astype(np.float32))
+    y0, aux0 = moe.moe_apply(p, x, tc)
+    with pytest.raises(RuntimeError, match="no mesh"):
+        moe.moe_decode_local(p, x, tc)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    try:
+        for rules in (serve_rules(mesh), train_rules(mesh)):
+            y, aux = moe.moe_apply(p, x, tc, rules=rules)
+            assert torch.equal(y, y0) and torch.equal(aux, aux0)
+        assert torch.equal(moe.moe_decode_local(p, x, tc), y0)
+    finally:
+        C.set_mesh(None)
 
 
 def test_moe_forward_and_aux_match_reference():

@@ -144,8 +144,23 @@ def test_causal_conv_and_decode_step_match_reference(arch):
         _close(to, jo, ATOL, f"step {step}")
         for name, a, b in zip(ssm.MambaState._fields, tst, jst):
             _close(a, b, H_ATOL, f"{name} step {step}", H_RTOL)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ssm.mamba_decode_step(tl, _t(xin), tc, tst, tp_axis="model")
+    # the head-sharded decode on a one-rank mesh,
+    # where its psums are the identity: the RMS statistic as a sum over
+    # the full width and the out projection accumulated in f32 agree with
+    # the reference's replicated step (the 8-rank path is
+    # tests/test_torch_mesh.py's)
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+    make_mesh((1, 1), ("data", "model"), "cpu")
+    try:
+        to, tst2 = ssm.mamba_decode_step(tl, _t(xin), tc, tst,
+                                         tp_axis="model")
+    finally:
+        C.set_mesh(None)
+    jo, jst2 = j_ssm.mamba_decode_step(jl, jnp.asarray(xin), jc, jst)
+    _close(to, jo, ATOL, "tp_axis")
+    for name, a, b in zip(ssm.MambaState._fields, tst2, jst2):
+        _close(a, b, H_ATOL, f"{name} tp_axis", H_RTOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
