@@ -35,7 +35,7 @@ order, each phase printing one JSON line:
                meta, counters and returns equal after every batch; then a
                2^20-cell table filled to load 0.9 through ``insert_batch``
                (robinhood in batches of 2047 keys: its int32 priority
-               needs m * B < 2^31), a tenth deleted and refilled, and four
+               needs m * B < 2^31), a tenth deleted and refilled, and two
                churn rounds of 2^14 deletes and inserts at a fixed live
                set, the invariants checked after each (every live key
                found where it lies, absent keys not found, counters equal
@@ -198,6 +198,12 @@ order, each phase printing one JSON line:
                shared block, mamba head-sharded) and gemma3 (one 5:1
                superblock), each fed 40 seeded tokens: logits against
                the one-device run, the megastep against single steps.
+               Then seamless under serve_rules at full width, depth 24 +
+               24 cut to 4 + 4: the encoder's prefill over the ranks'
+               weight shards (``prepare_encdec_state(rules=)``) and 40
+               seeded tokens, the tables equal to the one-device run's
+               every step and the logits at steps 9, 19, 29 and 39
+               within ``LOGITS_REL_TOL`` of its.
                Then the DHT (``core/sharded``) over the 4 ranks: 2^20
                cells filled to live load 0.9 and two churn rounds, the
                same ops on a card table and a CPU table over the same
@@ -206,6 +212,29 @@ order, each phase printing one JSON line:
                (its layer-0 pools and rank-local block table at the
                serve's peak state, the most live pages) against its
                plain version, timed beside its bound and SDPA.
+14. mesh_train — training on a device mesh, ranks spawned on the one card
+               as in phase 13.  codeqwen1.5-7b at full width (d_model
+               4096, 32 MHA heads of 128, d_ff 13440, vocab 92416), depth
+               32 -> 1 (0.99 B parameters), seeded bf16 weights, global
+               batch 8 x 256, 3 steps.  (a) The manual-pod compressed
+               step (``make_train_step_manual_pod``) on (pod 2, data 2,
+               model 1), or on (pod 2, data 1, model 1) with 2 ranks when
+               four replicated ranks' estimated peaks would pass
+               ``MT_MEM_CAP_GIB``: step 0's loss within ``MT_LOSS_TOL`` of
+               the one-device loss, every rank's params the same bits
+               after every step (a digest per rank), the compressed wire
+               bytes equal to ``compressed_bytes``.  (b) The rules step
+               (``train_rules``) on (data 2, model 2): step 0's loss
+               against one device, each rank's peak and collective bytes
+               per step; its f32 twin at smoke size, card against CPU
+               within ``TRAIN_F32_TOL``.  (c) (b)'s state saved from the
+               mesh and restored onto (data 4, model 1): every rank's
+               leaves equal to their cut of the saved arrays bit for bit,
+               one more step finite.  (d) GPipe on (pod 4), one
+               full-width block a stage, M 4, x [8, 256, 4096] bf16:
+               within ``LOGITS_REL_TOL`` of the one-device sequential
+               forward; its f32 smoke twin within ``PIPE_F32_TOL``;
+               bubble 3/7.  None of it reaches a TPU kernel.
 
 Launch counts are zeroed just before each serve run and read after its
 rebuild: K1 must have launched once per paged layer per token step, K2
@@ -216,8 +245,8 @@ kernels line, ``launches_by_strategy`` holds all three and
 K3's rebuild), ``launches_by_mesh`` each kernel's per rank on each mesh
 layout's serve and rebuild (counted in each rank from just before the
 serve to the end of the rebuild), ``launches_by_phase``
-the simulator's and the train phase's (none: neither path has a TPU
-kernel in the reference).  The
+the simulator's, the train phase's and mesh_train's (none: no such path
+has a TPU kernel in the reference).  The
 per-round check's launches are counted apart (``check_launches``).  A wrapper counts one launch per call, though K1 and
 K2 each make two CUDA launches (the split kernel and the merge).  Any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -305,9 +334,10 @@ FUSED_REPORT = {
 
 # the strategies phase: the 2^20-cell tables at load 0.9 and their churn
 # rounds (CHURN_KEYS deleted and as many inserted a round, 1/64 of the
-# table), and the card-vs-CPU replay at m = 2^14
+# table; two rounds, cut from four for the script's 1200 s since phase
+# mesh_train joined), and the card-vs-CPU replay at m = 2^14
 STRAT_M = 1 << 20
-CHURN_ROUNDS, CHURN_KEYS = 4, (1 << 20) // 64
+CHURN_ROUNDS, CHURN_KEYS = 2, (1 << 20) // 64
 REPLAY_M, REPLAY_BATCH, REPLAY_BATCHES = 1 << 14, 1024, 16
 
 # the sharded phase: the reference's shard-soak settings (4 host groups,
@@ -365,6 +395,34 @@ MESH_DHT = dict(m_global=1 << 20, load=0.9, batch=4096, slack=128,
                 churn_rounds=2)
 # a rank waiting longer than this in a collective fails the phase
 MESH_TIMEOUT_S = 180
+# seamless on the mesh (phase mesh, serve_rules): full width, depth 24 + 24
+# cut to 4 + 4, fed MESH_FAMILY_STEPS seeded tokens after the encoder's
+# prefill of seeded frames; the logits of these steps are held to the
+# one-device run's (the tables at every step)
+MESH_ENCDEC = ("seamless-m4t-large-v2", 4)
+MESH_ENCDEC_CHECKS = (9, 19, 29, 39)
+
+# phase mesh_train: ranks on the one card, gloo through the host.
+# codeqwen1.5-7b at full published width (d 4096, 32 MHA heads of 128, d_ff
+# 13440, vocab 92416), depth 32 -> 1 (0.99 B parameters), random bf16
+# weights from the seed, global batch 8 x 256, MT_STEPS steps: (a) the
+# manual-pod compressed step on (pod 2, data 2, model 1), or on (pod 2,
+# data 1, model 1) with 2 ranks when four replicated ranks' estimated peaks
+# (16 B a parameter: bf16 params and grads, f32 moments and error buffer,
+# plus f32 temporaries of the largest leaf) pass MT_MEM_CAP_GIB or the
+# card's free memory; (b) the rules step (train_rules) on (data 2, model
+# 2), with its f32 twin at smoke size card against CPU; (c) (b)'s state
+# saved from (data 2, model 2) and restored onto (data 4, model 1);
+# (d) GPipe on (pod 4), one full-width block a stage, M microbatches.
+# Step 0's loss is held to the one-device loss (the reference test's rtol)
+MT_ARCH, MT_LAYERS = "codeqwen1.5-7b", 1
+MT_BATCH, MT_SEQ, MT_STEPS = 8, 256, 3
+MT_LOSS_TOL = 2e-3
+MT_MEM_CAP_GIB = 74
+MT_RULES_SHAPE, MT_ELASTIC_SHAPE = (2, 2), (4, 1)
+MT_PIPE_LAYERS, MT_PIPE_M = 4, 4
+PIPE_F32_TOL = 1e-5            # tests/test_mesh.py's pipeline atol = rtol
+MT_TIMEOUT_S = 300
 
 
 T0 = time.time()
@@ -2042,6 +2100,42 @@ def forced_run(cfg, params, rules, steps: int):
     return logits, state, toks[:, -1:]
 
 
+def encdec_config():
+    """seamless at full width, its encoder and decoder both cut to
+    ``MESH_ENCDEC``'s depth."""
+    arch, layers = MESH_ENCDEC
+    return dataclasses.replace(mesh_config("serve_rules", arch, layers),
+                               encoder_layers=layers)
+
+
+def encdec_forced(cfg, params, rules, steps: int):
+    """seamless on one device or this rank of the mesh: the encoder's
+    prefill of seeded frames (``prepare_encdec_state``), then ``steps``
+    single serve steps fed the seeded tokens; returns the logits at
+    ``MESH_ENCDEC_CHECKS`` and every step's tables."""
+    import torch
+    from repro_torch.serving import engine as EG
+    toks = torch.from_numpy(forced_tokens(cfg, steps)).to(DEV)
+    max_len = MESH_TRAFFIC["max_len"]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    src = torch.randn((BATCH, max_len // 8, cfg.d_model), generator=g,
+                      device=DEV).to(cfg.activation_dtype())
+    state, _ = EG.make_decode_state(cfg, BATCH, max_len, rules=rules,
+                                    page_size=PAGE_SIZE, n_pages=MESH_PAGES,
+                                    device=DEV if rules is None else None)
+    state = EG.prepare_encdec_state(cfg, params, state, src, rules=rules)
+    step = EG.make_serve_step(cfg, S_max=max_len, rules=rules,
+                              page_size=PAGE_SIZE)
+    logits_at, tables = {}, []
+    for t in range(steps):
+        logits, state = step(params, *step_args(cfg, state,
+                                                toks[:, t:t + 1]))
+        tables.append(table_words(state))
+        if t in MESH_ENCDEC_CHECKS:
+            logits_at[t] = logits.cpu()
+    return logits_at, tables
+
+
 def rel_err_live(a, b, live) -> float:
     a, b = a[live].float(), b[live].float()
     return float((a - b).norm() / b.norm())
@@ -2077,6 +2171,13 @@ def mesh_reference() -> dict:
         out["families"][run] = logits.cpu()
         del params
         torch.cuda.empty_cache()
+    ecfg = encdec_config()
+    params = get_model(ecfg).init(
+        ecfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    logits, tables = encdec_forced(ecfg, params, None, MESH_FAMILY_STEPS)
+    out["encdec"] = {"logits": logits, "tables": tables}
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2342,6 +2443,30 @@ def mesh_rank(rank: int, ref: dict) -> dict:
         del params, state
         torch.cuda.empty_cache()
     out["families"] = fams
+    cfg = encdec_config()
+    rules = SH.serve_rules(mesh)
+    params = mesh_params(cfg, rules)
+    with uncounted(checks):
+        logits, tables = encdec_forced(cfg, params, rules,
+                                       MESH_FAMILY_STEPS)
+    live = torch.ones(BATCH, dtype=torch.bool)
+    rels = {t: rel_err_live(logits[t], ref["encdec"]["logits"][t], live)
+            for t in MESH_ENCDEC_CHECKS}
+    if not max(rels.values()) <= LOGITS_REL_TOL:
+        raise AssertionError(f"seamless on the mesh: logits relative errors "
+                             f"{rels} > {LOGITS_REL_TOL}")
+    for t, (a, b) in enumerate(zip(tables, ref["encdec"]["tables"])):
+        if not (torch.equal(a[0], b[0]) and a[1:3] == b[1:3]
+                and torch.equal(a[3], b[3])):
+            raise AssertionError(f"seamless on the mesh: step {t}'s tables "
+                                 f"differ from the one-device run's")
+    out["encdec"] = dict(arch=cfg.name, layers=cfg.num_layers,
+                         encoder_layers=cfg.encoder_layers,
+                         steps=MESH_FAMILY_STEPS, rel_err_by_step=rels,
+                         tables_equal_every_step=True,
+                         report=EG.fallback_report(cfg, rules))
+    del params
+    torch.cuda.empty_cache()
     out["dht"] = mesh_dht(rank)
     out["checks"] = checks
     return out
@@ -2438,6 +2563,8 @@ def phase_mesh() -> dict:
         launches[table] = r0["launches"]
         rows.append(k1_mesh_row(table, r0["k1"], launches[table]["K1"]))
     emit("mesh_families", **outs[0]["families"])
+    emit("mesh_encdec", layout="serve_rules",
+         mesh=dict(zip(MESH_AXES, MESH_SHAPE)), **outs[0]["encdec"])
     dht = [o["dht"] for o in outs]
     if sum(d["shard_keys"] for d in dht) != sum(d["live_keys"] for d in dht):
         raise AssertionError("mesh DHT: the shards' key counts do not add "
@@ -2446,6 +2573,374 @@ def phase_mesh() -> dict:
     emit("mesh_done", seconds=time.perf_counter() - t0,
          reference_seconds=ref_s, k1_rows=rows)
     return {"launches": launches, "rows": rows}
+
+
+def mt_config(layers: int = MT_LAYERS, smoke: bool = False):
+    """Phase mesh_train's model: codeqwen at full width, depth cut to
+    ``layers`` (or its smoke config in float32)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    if smoke:
+        return dataclasses.replace(get_smoke_config(MT_ARCH),
+                                   num_layers=layers, dtype="float32")
+    return dataclasses.replace(get_config(MT_ARCH), num_layers=layers)
+
+
+def mt_batch(cfg, step: int, device, batch=MT_BATCH, seq=MT_SEQ):
+    from repro_torch.training import data as DATA
+    return DATA.synth_batch(cfg, batch=batch, seq_len=seq, step=step,
+                            seed=SEED, device=device)
+
+
+def mt_init(cfg, device, rules=None):
+    """The seeded train state (on the card's generator, the one-device
+    run's bits), whole or this rank's shards."""
+    import torch
+    from repro_torch.training import train_step as TS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return TS.init_state(cfg, gen, device, rules=rules)
+
+
+def param_digest(params) -> list:
+    """Per leaf, exact integer sums over its bits (the values, their
+    squares and neighbour products, in chunks): equal trees give equal
+    digests, and a rank whose bits drift shows it."""
+    import torch
+    from repro_torch.models import nn
+    out = []
+    for p in nn.tree_leaves(params):
+        v = p.detach().reshape(-1)
+        v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+        acc = [0, 0, 0]
+        for lo in range(0, v.numel(), 1 << 25):
+            c = v[lo:lo + (1 << 25)].long()
+            acc[0] += int(c.sum())
+            acc[1] += int((c * c).sum())
+            acc[2] += int((c[1:] * c[:-1]).sum())
+        out.append(tuple(acc))
+    return out
+
+
+def pipe_blocks(cfg, layers, device):
+    """``layers`` blocks stacked ``[n, ...]``, block i drawn from its own
+    seed (a stage draws only its own)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import nn
+    return nn.stack_layer_params([
+        L.block_init(cfg, cfg.activation_dtype(), torch.Generator(
+            device=device).manual_seed(SEED + 100 + i), device)
+        for i in layers])
+
+
+def pipe_apply(cfg):
+    """The pipeline's ``apply_range``: the blocks of a stacked stage in
+    turn."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import nn
+
+    def apply_range(w, x):
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(nn.tree_leaves(w)[0].shape[0]):
+            x = L.block_apply(nn.layer_slice(w, i), x, pos, cfg)
+        return x
+    return apply_range
+
+
+def pipe_input(cfg, device, batch=MT_BATCH, seq=MT_SEQ):
+    import torch
+    g = torch.Generator(device=device).manual_seed(SEED + 200)
+    return torch.randn((batch, seq, cfg.d_model), generator=g,
+                       device=device).to(cfg.activation_dtype())
+
+
+def mt_reference() -> dict:
+    """Phase mesh_train's one-device runs on the card: the loss of the
+    seeded state on step 0's global batch, and the four seeded blocks'
+    sequential forward of the pipeline's input."""
+    import torch
+    from repro_torch.models import nn
+    from repro_torch.training import train_step as TS
+    cfg = mt_config()
+    st = mt_init(cfg, DEV)
+    with torch.no_grad():
+        loss = float(TS.make_loss_fn(cfg, remat=False)(
+            st.params, mt_batch(cfg, 0, DEV)))
+    sizes = [p.numel() for p in nn.tree_leaves(st.params)]
+    del st
+    pcfg = mt_config(MT_PIPE_LAYERS)
+    w = pipe_blocks(pcfg, range(MT_PIPE_LAYERS), DEV)
+    with torch.no_grad():
+        y = pipe_apply(pcfg)(w, pipe_input(pcfg, DEV))
+    del w
+    torch.cuda.empty_cache()
+    return {"loss0": loss, "n_params": sum(sizes), "biggest": max(sizes),
+            "pipe_y": y.cpu()}
+
+
+def mt_pod_rank(rank: int, shape, ref: dict) -> dict:
+    """(a): the manual-pod compressed step on this rank of ``shape``
+    (pod, data, model), replicated state from the seed."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import compression as COMP
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_step as TS
+    mesh = make_mesh(shape, ("pod", "data", "model"), DEV)
+    cfg = mt_config()
+    st = mt_init(cfg, DEV)
+    err = TS.init_pod_error_buffers(st.params, shape[0], mesh=mesh)
+    step = TS.make_train_step_manual_pod(cfg, mesh,
+                                         rules=SH.train_rules(mesh))
+    wire_want = (shape[0] - 1) * COMP.compressed_bytes(st.params)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(MT_STEPS):
+        b = mt_batch(cfg, i, DEV)
+        C.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, err, m = step(st, err, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = {k: dict(v) for k, v in C.COLLECTIVE_STATS["by_op"].items()}
+        wire = stats["all_gather"]["sent"]
+        if wire != wire_want:
+            raise AssertionError(f"manual pod: {wire} compressed wire bytes, "
+                                 f"compressed_bytes says {wire_want}")
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"manual pod step {i}: loss {loss}, grad "
+                                 f"norm {gn}")
+        steps.append(dict(loss=loss, grad_norm=gn, seconds=dt,
+                          compressed_wire_bytes=wire,
+                          collectives=C.COLLECTIVE_STATS["calls"],
+                          by_op=stats, digest=param_digest(st.params)))
+    return {"rank": rank, "steps": steps,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
+    """(b), (c) and (d) on this rank of the 4 (see the constants)."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import pipeline as PL
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import nn
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+    out = {"rank": rank}
+    cfg = mt_config()
+
+    # (b) the rules step on (data 2, model 2)
+    mesh = make_mesh(MT_RULES_SHAPE, ("data", "model"), DEV)
+    rules = SH.train_rules(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    st = mt_init(cfg, DEV, rules)
+    torch.cuda.empty_cache()
+    step = TS.make_train_step(cfg, rules=rules)
+    steps = []
+    for i in range(MT_STEPS):
+        b = mt_batch(cfg, i, DEV)
+        C.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"rules step {i}: loss {loss}, grad norm "
+                                 f"{gn}")
+        steps.append(dict(loss=loss, grad_norm=gn, seconds=dt,
+                          collectives=C.COLLECTIVE_STATS["calls"],
+                          by_op={k: dict(v) for k, v in
+                                 C.COLLECTIVE_STATS["by_op"].items()}))
+    rel0 = abs(steps[0]["loss"] - ref["loss0"]) / abs(ref["loss0"])
+    if rel0 > MT_LOSS_TOL:
+        raise AssertionError(f"rules step 0 loss {steps[0]['loss']} vs one "
+                             f"device {ref['loss0']}")
+    out["rules"] = dict(steps=steps, loss0_rel_err=rel0,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        local_params=sum(p.numel() for p in
+                                         nn.tree_leaves(st.params)))
+
+    # its f32 twin at smoke size, card against CPU on the same ranks
+    sc = mt_config(2, smoke=True)
+    cpu_mesh = make_mesh(MT_RULES_SHAPE, ("data", "model"), "cpu")
+    cpu_rules = SH.train_rules(cpu_mesh)
+    cs = TS.init_state(sc, torch.Generator().manual_seed(SEED), "cpu",
+                       rules=cpu_rules)
+    to_dev = lambda t: t.detach().to(DEV, copy=True)
+    gs = TS.TrainState(nn.tree_map(to_dev, cs.params), OPT.OptState(
+        nn.tree_map(to_dev, cs.opt.m), nn.tree_map(to_dev, cs.opt.v),
+        to_dev(cs.opt.count)), to_dev(cs.step))
+    f32_loss = 0.0
+    for i in range(2):
+        bc = mt_batch(sc, i, "cpu", batch=4, seq=16)
+        C.set_mesh(cpu_mesh)
+        cs, mc = TS.make_train_step(sc, rules=cpu_rules)(cs, bc)
+        C.set_mesh(mesh)
+        gs, mg = TS.make_train_step(sc, rules=rules)(
+            gs, {k: v.to(DEV) for k, v in bc.items()})
+        f32_loss = max(f32_loss, rel_err(mg["loss"], mc["loss"]))
+    f32_params = max(rel_err(a, b) for a, b in zip(
+        nn.tree_leaves(gs.params), nn.tree_leaves(cs.params)))
+    if max(f32_loss, f32_params) > TRAIN_F32_TOL:
+        raise AssertionError(f"rules f32 twin: card vs CPU loss {f32_loss}, "
+                             f"params {f32_params}")
+    out["rules"]["f32_card_vs_cpu"] = dict(loss=f32_loss, params=f32_params)
+    del cs, gs
+
+    # (c) elastic restore onto (data 4, model 1)
+    t0 = time.perf_counter()
+    CKPT.save(ckpt_dir, MT_STEPS, st, TS.state_axes(cfg), rules=rules,
+              specs=TS.state_specs(cfg, rules))
+    save_s = time.perf_counter() - t0
+    del st, step
+    torch.cuda.empty_cache()
+    mesh2 = make_mesh(MT_ELASTIC_SHAPE, ("data", "model"), DEV)
+    rules2 = SH.train_rules(mesh2)
+    shapes = TS.param_shapes(cfg)
+    meta = torch.zeros((), dtype=torch.int32, device="meta")
+    tmpl = TS.TrainState(shapes, OPT.OptState(shapes, shapes, meta), meta)
+    t0 = time.perf_counter()
+    st2, at = CKPT.restore(ckpt_dir, tmpl, rules=rules2)
+    restore_s = time.perf_counter() - t0
+    with open(os.path.join(ckpt_dir, f"step_{at:08d}", "manifest.json")) \
+            as f:
+        manifest = json.load(f)
+    bad = []
+    for key, leaf in CKPT._flatten(st2).items():
+        entry = manifest["leaves"][key]
+        arr = np.load(os.path.join(ckpt_dir, f"step_{at:08d}",
+                                   entry["file"]), mmap_mode="r")
+        spec = rules2.spec(tuple(entry["logical_axes"]), arr.shape)
+        piece = CKPT._from_numpy(np.array(arr[SH.shard_slices(
+            spec, arr.shape, mesh2)]), entry["dtype"])
+        if leaf.device.type != torch.device(DEV).type or \
+                not torch.equal(leaf.cpu(), piece):
+            bad.append(key)
+    if bad or at != MT_STEPS:
+        raise AssertionError(f"elastic restore: step {at}, leaves {bad} "
+                             f"differ from their cut of the saved arrays")
+    st2, m2 = TS.make_train_step(cfg, rules=rules2)(
+        st2, mt_batch(cfg, MT_STEPS, DEV))
+    if not np.isfinite(float(m2["loss"])):
+        raise AssertionError(f"elastic restore: loss {float(m2['loss'])}")
+    out["elastic"] = dict(step=at, leaves=len(manifest["leaves"]),
+                          bitwise=True, save_s=save_s, restore_s=restore_s,
+                          next_loss=float(m2["loss"]))
+    del st2
+    torch.cuda.empty_cache()
+
+    # (d) GPipe on (pod 4): one full-width block a stage
+    mesh3 = make_mesh((MT_PIPE_LAYERS,), ("pod",), DEV)
+    pcfg = mt_config(MT_PIPE_LAYERS)
+    sl = PL.stage_layers(pcfg, mesh3)
+    w = pipe_blocks(pcfg, range(sl.start, sl.stop), DEV)
+    fwd = PL.make_pipelined_forward(pcfg, mesh3, pipe_apply(pcfg),
+                                    microbatches=MT_PIPE_M)
+    C.reset_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fwd(w, pipe_input(pcfg, DEV))
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+    pipe_coll = {k: dict(v) for k, v in C.COLLECTIVE_STATS["by_op"].items()}
+    rel = rel_err(y, ref["pipe_y"])
+    if not rel <= LOGITS_REL_TOL:
+        raise AssertionError(f"pipeline: {rel} from the sequential forward")
+    del w, y
+    scfg = mt_config(MT_PIPE_LAYERS, smoke=True)
+    ws = pipe_blocks(scfg, range(MT_PIPE_LAYERS), DEV)
+    xs = pipe_input(scfg, DEV, batch=8, seq=16)
+    with torch.no_grad():
+        seq = pipe_apply(scfg)(ws, xs)
+        got = PL.make_pipelined_forward(
+            scfg, mesh3, pipe_apply(scfg), microbatches=MT_PIPE_M)(
+            nn.tree_map(lambda t: t[sl], ws), xs)
+    f32_err = float(((got - seq).abs() - PIPE_F32_TOL * seq.abs()).max())
+    if f32_err > PIPE_F32_TOL:
+        raise AssertionError(f"pipeline f32 twin: {f32_err} beyond atol "
+                             f"{PIPE_F32_TOL} + rtol |y|")
+    out["pipeline"] = dict(rel_err=rel, seconds=pipe_s, collectives=pipe_coll,
+                           f32_excess_over_rtol=f32_err,
+                           bubble=PL.bubble_fraction(MT_PIPE_M,
+                                                     MT_PIPE_LAYERS))
+    return out
+
+
+def phase_mesh_train() -> dict:
+    """Phase 14 (module docstring).  Returns the kernels' launches (none:
+    training and the pipeline reach no TPU kernel in the reference)."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    wrappers = zero_launches()
+    t_phase = time.perf_counter()
+    ref = mt_reference()
+    ref_s = time.perf_counter() - t_phase
+    free, _ = torch.cuda.mem_get_info()
+    est = 16 * ref["n_params"] + 3 * 4 * ref["biggest"] + 2 ** 30
+    four = 4 * est <= min(MT_MEM_CAP_GIB * 2 ** 30, free)
+    pod_shape = (2, 2, 1) if four else (2, 1, 1)
+    t0 = time.perf_counter()
+    pod = run_spmd(mt_pod_rank, pod_shape[0] * pod_shape[1],
+                   (pod_shape, ref), device=DEV, timeout_s=MT_TIMEOUT_S)
+    pod_s = time.perf_counter() - t0
+    for i in range(MT_STEPS):
+        digests = {str(o["steps"][i]["digest"]) for o in pod}
+        if len(digests) != 1:
+            raise AssertionError(f"manual pod step {i}: the ranks' params "
+                                 f"differ")
+    rel0 = abs(pod[0]["steps"][0]["loss"] - ref["loss0"]) / abs(ref["loss0"])
+    if rel0 > MT_LOSS_TOL:
+        raise AssertionError(f"manual pod step 0 loss "
+                             f"{pod[0]['steps'][0]['loss']} vs one device "
+                             f"{ref['loss0']}")
+    emit("mesh_train_pod", card=nvidia_smi(), arch=MT_ARCH,
+         layers=MT_LAYERS, params=ref["n_params"],
+         mesh=dict(zip(("pod", "data", "model"), pod_shape)),
+         four_ranks_fit=four, est_rank_peak_gib=est / 2 ** 30,
+         free_gib=free / 2 ** 30, batch=MT_BATCH, seq=MT_SEQ,
+         one_device_loss0=ref["loss0"], loss0_rel_err=rel0,
+         params_equal_across_ranks_every_step=True,
+         steps=[{k: v for k, v in s.items() if k != "digest"}
+                for s in pod[0]["steps"]],
+         peak_gib_by_rank=[o["peak_gib"] for o in pod], seconds=pod_s)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        outs = run_spmd(mt_rules_rank, 4, (ref, d), device=DEV,
+                        timeout_s=MT_TIMEOUT_S)
+        rules_s = time.perf_counter() - t0
+    r0 = outs[0]
+    emit("mesh_train_rules", card=nvidia_smi(), arch=MT_ARCH,
+         layers=MT_LAYERS, mesh=dict(zip(("data", "model"), MT_RULES_SHAPE)),
+         batch=MT_BATCH, seq=MT_SEQ, one_device_loss0=ref["loss0"],
+         **{k: v for k, v in r0["rules"].items()},
+         peak_gib_by_rank=[o["rules"]["peak_gib"] for o in outs],
+         by_op_by_rank=[o["rules"]["steps"][-1]["by_op"] for o in outs])
+    emit("mesh_train_elastic", mesh_from=dict(zip(("data", "model"),
+                                                  MT_RULES_SHAPE)),
+         mesh_to=dict(zip(("data", "model"), MT_ELASTIC_SHAPE)),
+         by_rank=[o["elastic"] for o in outs])
+    emit("mesh_train_pipeline", mesh={"pod": MT_PIPE_LAYERS},
+         layers=MT_PIPE_LAYERS, microbatches=MT_PIPE_M,
+         x=[MT_BATCH, MT_SEQ, mt_config().d_model], **r0["pipeline"])
+    launches = no_launches(wrappers, "mesh_train")
+    emit("mesh_train_done", seconds=time.perf_counter() - t_phase,
+         reference_seconds=ref_s, pod_seconds=pod_s, rules_seconds=rules_s,
+         launches=launches)
+    return launches
 
 
 def zero_launches() -> dict:
@@ -2910,7 +3405,8 @@ def main() -> int:
     kernels[0]["mesh_shapes"] = mesh["rows"]
     errs["K1"] = max([errs["K1"]] + [r["max_abs_err"] for r in mesh["rows"]])
     kernels[0]["max_abs_err"] = errs["K1"]
-    by_phase = {"simulator": phase_simulator(), "train": phase_train()}
+    by_phase = {"simulator": phase_simulator(), "train": phase_train(),
+                "mesh_train": phase_mesh_train()}
     for e in kernels:
         key = {"fused_decode": "K1", "paged_attention": "K2",
                "probe_lookup": "K3"}[e["name"]]

@@ -149,6 +149,11 @@ def _map2(fn, axes_tree, tree):
     raise TypeError(f"not an axes tree node: {axes_tree!r}")
 
 
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, sorted."""
+    return tuple(sorted(a for e in spec for a in _as_tuple(e)))
+
+
 def shard_slices(spec, shape, mesh) -> Tuple[slice, ...]:
     """This rank's slice of each dim of a ``shape`` value under ``spec``:
     a dim sharded over axes (a, b) is cut into size(a)·size(b) pieces and

@@ -112,6 +112,31 @@ def _mlp_manual(mp, ln, x):
     return C.psum(L.mlp_apply(mp, nn.rmsnorm(ln, x)), "model")
 
 
+def block_apply_sharded(cfg, p, x, positions, *, causal: bool = True):
+    """A pre-norm (attn + MLP) block on this rank's pieces of ``p`` as a
+    rules table cut them (``serve_rules``: heads, KV heads and d_ff over
+    ``model`` where they divide): the Megatron forward of
+    ``block_apply_tp`` — column-parallel QKV and gate/up, row-parallel
+    outputs with one psum over ``model`` each — on whatever the rules
+    sharded, the plain sublayer on what they left whole.  ``x`` is
+    replicated.  The encdec encoder runs through it on a mesh."""
+    ap = p["attn"]
+    h = L.self_attention(ap, nn.rmsnorm(p["ln1"], x), positions, cfg,
+                         causal=causal)
+    hq, hkv = ap["wq"].shape[1], ap["wk"].shape[1]
+    if hq < cfg.n_q:
+        if hkv * (cfg.n_q // cfg.n_kv) != hq:
+            raise ValueError(f"q heads sharded to {hq} of {cfg.n_q} but KV "
+                             f"heads to {hkv} of {cfg.n_kv}: the local "
+                             f"groups do not line up")
+        h = C.psum(h, "model")
+    x = x + h
+    y = L.mlp_apply(p["mlp"], nn.rmsnorm(p["ln2"], x))
+    if p["mlp"]["wo"].shape[0] < cfg.d_ff:
+        y = C.psum(y, "model")
+    return x + y
+
+
 # ---------------------------------------------------------------------------
 # Decode-side manual TP (serving/engine's fused serve step).
 

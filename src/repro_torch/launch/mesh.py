@@ -62,8 +62,9 @@ def _free_port() -> int:
 
 
 def _rank_main(rank: int, fn, world: int, port: int, out_dir: str,
-               timeout_s: float, threads: int, device: str, args) -> None:
+               timeout_s: float, threads: int, device: str) -> None:
     torch.set_num_threads(threads)
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     if device == "cuda":
         torch.cuda.set_device(0)
     dist.init_process_group(
@@ -85,12 +86,15 @@ def run_spmd(fn: Callable[..., Any], world: int, args=(), *,
     ``torch.save``, so tensors should be on the host) in rank order.
     ``fn`` must be importable by name (a module-level function).  Raises
     when a rank fails; a rank stuck in a collective fails after
-    ``timeout_s``."""
+    ``timeout_s``.  ``args`` reach the ranks through a file: spawn's pipe
+    would hand them over one rank at a time, each waiting for the last
+    to start."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as out_dir:
+        torch.save(tuple(args), os.path.join(out_dir, "args.pt"))
         mp.start_processes(
             _rank_main, args=(fn, world, _free_port(), out_dir, timeout_s,
-                              threads, device, tuple(args)),
+                              threads, device),
             nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(out_dir, f"{r}.pt"),
                            weights_only=False) for r in range(world)]

@@ -1,14 +1,18 @@
 """Train runner: data -> train_step -> checkpoint, wired with the
 fault-tolerance layer (watchdog, straggler monitor, restore on start)
-(PyTorch port of ``launch/train.py``, one device).
+(PyTorch port of ``launch/train.py``).  The same loop runs on one device
+and, with ``TrainRunner(rules=)`` on every rank of a mesh
+(``launch/mesh.run_spmd``), the rules-sharded step: each rank holds its
+shards, checkpoints are gathered to rank 0 and restored elastically onto
+whatever mesh the rules bring.
 
 Usage (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
       --smoke --device cpu --steps 8 --batch 2 --seq 32 --ckpt-dir /tmp/ck
 
 Without ``--device`` it trains on the CUDA card.  ``--layers N`` cuts the
-depth.  The reference's ``--rules`` (the mesh's sharding rules) is ROADMAP
-item 22b.
+depth.  As in the reference, the command line trains on one device; the
+mesh enters through ``TrainRunner(rules=)``.
 """
 from __future__ import annotations
 
@@ -34,12 +38,18 @@ class TrainRunner:
     loss, grad norm and learning rate, ``step_seconds`` its wall time,
     measured to the loss's host read."""
 
-    def __init__(self, cfg, *, ckpt_dir=None, ckpt_every=50,
+    def __init__(self, cfg, *, rules=None, ckpt_dir=None, ckpt_every=50,
                  deadline_s=3600.0, dedup=False, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.step_fn = TS.make_train_step(cfg)
-        self.ckpt = (CKPT.CheckpointManager(ckpt_dir)
+        self.rules = rules
+        self.device = (rules.mesh.device if rules is not None
+                       else resolve_device(device))
+        self.step_fn = TS.make_train_step(cfg, rules=rules)
+        self.axes = TS.state_axes(cfg)
+        self.specs = TS.state_specs(cfg, rules) if rules is not None \
+            else None
+        self.ckpt = (CKPT.CheckpointManager(ckpt_dir, rules=rules,
+                                            specs=self.specs)
                      if ckpt_dir else None)
         self.ckpt_every = ckpt_every
         self.watchdog = FT.StepWatchdog(deadline_s)
@@ -50,12 +60,13 @@ class TrainRunner:
 
     def init_or_restore(self, seed: int):
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        state = TS.init_state(self.cfg, gen, self.device)
+        state = TS.init_state(self.cfg, gen, self.device, rules=self.rules)
         start = 0
         if self.ckpt is not None and \
                 CKPT.latest_step(self.ckpt.dir) is not None:
-            state, start = self.ckpt.restore_latest(state)
-            print(f"[train] restored checkpoint at step {start}")
+            state, start = self.ckpt.restore_latest(state, rules=self.rules)
+            if self.rules is None or self.rules.mesh.rank == 0:
+                print(f"[train] restored checkpoint at step {start}")
         return state, start
 
     def run(self, *, batch: int, seq_len: int, steps: int, seed: int = 0,
@@ -85,14 +96,15 @@ class TrainRunner:
             self.history.append({"loss": loss,
                                  "grad_norm": float(metrics["grad_norm"]),
                                  "lr": float(metrics["lr"])})
-            if step % log_every == 0:
+            if step % log_every == 0 and (self.rules is None
+                                          or self.rules.mesh.rank == 0):
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"gnorm {self.history[-1]['grad_norm']:.3f} "
                       f"lr {self.history[-1]['lr']:.2e} {dt*1e3:.0f}ms")
             if self.ckpt is not None and (step + 1) % self.ckpt_every == 0:
-                self.ckpt.save_async(step + 1, state)
+                self.ckpt.save_async(step + 1, state, self.axes)
         if self.ckpt is not None:
-            self.ckpt.save_async(steps, state)
+            self.ckpt.save_async(steps, state, self.axes)
             self.ckpt.wait()
         return state, losses
 

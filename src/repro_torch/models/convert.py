@@ -11,7 +11,8 @@ and hybrid families' ``layers.mamba`` / ``layers.ln`` and ``shared``,
 encdec's ``encoder``, ``decoder`` (with ``cross`` and ``ln_cross``) and
 ``enc_norm``.  The layouts are the same on both
 sides, so both compute the same function.  ``train_state_from_numpy`` does
-the same for a whole train state (parameters, AdamW moments, count).
+the same for a whole train state (parameters, AdamW moments, count), and
+``pod_error_from_numpy`` for the manual-pod step's error buffers.
 On a mesh each rank converts only its own pieces (``specs``).  numpy
 only: nothing here imports JAX.
 """
@@ -59,18 +60,25 @@ def from_numpy_tree(tree, cfg, device=None, *, specs=None,
     return walk(tree, ())
 
 
-def train_state_from_numpy(params, m, v, count, cfg, device=None, step=None):
+def train_state_from_numpy(params, m, v, count, cfg, device=None, step=None,
+                           *, specs=None, mesh=None):
     """The reference's train state — ``params``, the AdamW moments ``m``
     and ``v`` (float32 trees like ``params``) and ``count``, all numpy —
     as the port's ``training.train_step.TrainState`` on ``device``, so both
     packages start a step from the same state.  ``step`` defaults to
-    ``count``; the parameters require grad."""
+    ``count``; the parameters require grad.  With ``specs`` (e.g.
+    ``train_step.param_specs(cfg, rules)``) and ``mesh`` a rank gets its
+    shards of the parameters and of both moments, on the mesh's device."""
     from repro_torch.models.nn import tree_leaves
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_step import TrainState
 
+    if specs is not None:
+        from repro_torch.dist.sharding import local_shard
+        m, v = local_shard(m, specs, mesh), local_shard(v, specs, mesh)
+        device = mesh.device if device is None else device
     dev = resolve_device(device)
-    p = from_numpy_tree(params, cfg, dev)
+    p = from_numpy_tree(params, cfg, dev, specs=specs, mesh=mesh)
     for leaf in tree_leaves(p):
         leaf.requires_grad_(True)
 
@@ -85,3 +93,18 @@ def train_state_from_numpy(params, m, v, count, cfg, device=None, step=None):
     return TrainState(params=p,
                       opt=opt.OptState(m=f32(m), v=f32(v), count=i32(count)),
                       step=i32(count if step is None else step))
+
+
+def pod_error_from_numpy(err, mesh, device=None):
+    """The reference's manual-pod error buffers (numpy trees of float32
+    ``[npods, ...]``, sharded over ``pod``) as this rank's piece ``[1,
+    ...]``: its pod's residual, on the mesh's device unless ``device``."""
+    from repro_torch.dist.sharding import P, local_shard
+    piece = local_shard(err, P("pod"), mesh)
+    dev = resolve_device(mesh.device if device is None else device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(x) for k, x in t.items()}
+        return torch.from_numpy(np.array(t, np.float32)).to(dev)
+    return walk(piece)

@@ -65,8 +65,15 @@ the identical allocation and sees the same aborts.  Two layouts:
   mamba inside the same step.
 
 A rank's wrapper launches K1 on its own pools, which are their own
-contiguous tensors.  Not ported on a mesh: the encdec family (its encoder
-prefill over sharded weights, ROADMAP item 22b); it raises.
+contiguous tensors.  The encdec family decodes on the gspmd layout under
+either rule set (the fused manual region refuses it, as the reference's
+``_manual_decode_ok`` does): ``prepare_encdec_state(rules=)`` runs the
+encoder through the Megatron forward on the rank's weight shards
+(``dist/tp.block_apply_sharded``) and fills the rank's piece of the cross
+K/V (lanes over ``data``, KV heads over ``model``); the step's cross
+attention runs on those pieces, psum'd over ``model`` and all-gathered
+over the lanes, and its self attention stays on the plain
+``attend_local``.
 """
 from __future__ import annotations
 
@@ -103,10 +110,6 @@ def _check_engine(cfg, rules) -> None:
     registry.check_supported(cfg)
     if rules is None:
         return
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "encdec decode over a mesh (its encoder prefill over sharded "
-            "weights) is not ported: ROADMAP item 22b")
     if C.current_mesh() is not rules.mesh:
         raise ValueError("the rules' mesh is not this process's bound mesh "
                          "(launch.mesh.make_mesh)")
@@ -741,16 +744,73 @@ def _cross_attn_decode(cfg, x, cp, ck, cv):
     return L.attn_out_decode(cp, o)[:, None]
 
 
+def _cross_attn_gspmd(cfg, x, cp, ck, cv):
+    """Cross attention on a mesh rank's pieces: ``x`` [B,1,d] replicated,
+    ``cp`` the rules' cut of the weights (heads over ``model``), ``ck``/
+    ``cv`` this rank's lanes (over ``data``) and KV heads (over
+    ``model``).  The rank's heads are psum'd over ``model`` after the
+    row-parallel out projection, and the lanes all-gathered over
+    ``data``."""
+    B = x.shape[0]
+    lanes = lane_slice(ck, 0, B)
+    q = L._proj(x[lanes, 0], cp["wq"])
+    if "bq" in cp:
+        q = q + cp["bq"]
+    Bl, hq = q.shape[:2]
+    hkv = ck.shape[2]
+    G = cfg.n_q // cfg.n_kv
+    if hq == cfg.n_q and hkv < cfg.n_kv:
+        # KV heads sharded where q heads are not: take them all
+        ck = C.all_gather(ck, "model", dim=2)
+        cv = C.all_gather(cv, "model", dim=2)
+        hkv = cfg.n_kv
+    elif hq < cfg.n_q and hkv == cfg.n_kv:
+        # q heads sharded where KV heads are not: their KV heads
+        lo = C.axis_index("model") * hq // G
+        hkv = max(hq // G, 1)
+        ck, cv = ck[:, :, lo:lo + hkv], cv[:, :, lo:lo + hkv]
+    if hkv * G != hq:
+        raise ValueError(f"cross attention: {hq} local q heads do not "
+                         f"group over {hkv} KV heads")
+    qg = q.reshape(Bl, hkv, G, cfg.hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     ck.float()) / math.sqrt(cfg.hd)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    o = L.attn_out_decode(cp, o.reshape(Bl, hq, cfg.hd).to(x.dtype))
+    if hq < cfg.n_q:
+        o = C.psum(o, "model")
+    if Bl < B:
+        o = C.all_gather(o, "data", dim=0)
+    return o[:, None]
+
+
 def prepare_encdec_state(cfg, params, state, src_embeds, *, rules=None):
     """Run the encoder and fill the decoder's cross K/V (the encoder-decoder
     prefill).  src_embeds [B, S_src, d] (the stub audio frontend's frame
-    embeddings).  Returns a new state."""
+    embeddings).  Returns a new state.  With ``rules`` ``params`` and
+    ``state`` are this rank's pieces (``mesh_param_specs``,
+    ``make_decode_state(rules=)``) and ``src_embeds`` the whole batch: the
+    encoder runs replicated through the Megatron forward on the weight
+    shards, and the rank keeps its lanes and KV heads of the cross K/V."""
     _check_engine(cfg, rules)
-    memory = encdec.encode(cfg, params, src_embeds)
+    if rules is None:
+        memory = encdec.encode(cfg, params, src_embeds)
+        lanes = slice(None)
+    else:
+        x = src_embeds
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.encoder_layers):
+            x = TP.block_apply_sharded(
+                cfg, nn.layer_slice(params["encoder"], i), x, positions,
+                causal=False)
+        memory = nn.rmsnorm(params["enc_norm"], x)
+        lanes = lane_slice(state["cross_k"], 1, src_embeds.shape[0])
     ks, vs = [], []
     for i in range(cfg.num_layers):
         cp = nn.layer_slice(params["decoder"], i)["cross"]
-        k, v = L._proj(memory, cp["wk"]), L._proj(memory, cp["wv"])
+        k = L._proj(memory[lanes], cp["wk"])
+        v = L._proj(memory[lanes], cp["wv"])
         if "bk" in cp:
             k, v = k + cp["bk"], v + cp["bv"]
         ks.append(k)
@@ -793,6 +853,9 @@ class _Ops:
     def mlp(self, mp, x):
         return L.mlp_apply(mp, x)
 
+    def cross(self, cp, x, ck, cv):
+        return _cross_attn_decode(self.cfg, x, cp, ck, cv)
+
     def mamba(self, layers, states, x, lo, hi):
         return HY.mamba_decode_chunk(self.cfg, layers, states, x, lo, hi)
 
@@ -810,7 +873,14 @@ class _GspmdOps(_Ops):
         self.ssm_tp = _ssm_tp(cfg, rules)
 
     def page_axes(self):
-        return _mesh_axes(self.rules)
+        """The axes the rules' ``pages`` entry names (every axis under
+        ``serve_rules``; (pod, data) when the manual rules fall back to
+        this layout, as for encdec)."""
+        want = self.rules.rules.get("pages", ())
+        return tuple(a for a in _mesh_axes(self.rules) if a in want)
+
+    def cross(self, cp, x, ck, cv):
+        return _cross_attn_gspmd(self.cfg, x, cp, ck, cv)
 
     def embed(self, params, tokens):
         """A vocab-sharded table: each rank looks up the tokens in its
@@ -1140,16 +1210,15 @@ def _hybrid_layers(cfg, params, state, x, attn, ops):
     return x, ssm.MambaState(*(torch.cat(ts) for ts in zip(*chunks)))
 
 
-def _encdec_layers(cfg, params, state, x, attn):
+def _encdec_layers(cfg, params, state, x, attn, ops):
     """seamless's decoder: paged causal self attention, cross attention
     over the encoder's K/V, SwiGLU MLP."""
     for i in range(cfg.num_layers):
         lpp = nn.layer_slice(params["decoder"], i)
         x = x + attn(nn.rmsnorm(lpp["ln1"], x), lpp["attn"], i, None)
-        x = x + _cross_attn_decode(cfg, nn.rmsnorm(lpp["ln_cross"], x),
-                                   lpp["cross"], state["cross_k"][i],
-                                   state["cross_v"][i])
-        x = x + L.mlp_apply(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
+        x = x + ops.cross(lpp["cross"], nn.rmsnorm(lpp["ln_cross"], x),
+                          state["cross_k"][i], state["cross_v"][i])
+        x = x + ops.mlp(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
     return x
 
 
@@ -1189,7 +1258,7 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
             new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"],
                                            act & ~aborts)
         elif cfg.family == "encdec":
-            x = _encdec_layers(cfg, params, state, x, attn)
+            x = _encdec_layers(cfg, params, state, x, attn, ops)
         else:
             x, ring_pos = _attention_layers(cfg, params, state, x,
                                             positions, mrope, attn, ops)

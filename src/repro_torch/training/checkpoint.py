@@ -20,9 +20,19 @@ dtypes.
   owns, and the step becomes visible when ``shards.json`` lands (tmp +
   ``os.replace``, so a re-commit with a new shard manifest is atomic too).
 
-The reference's mesh-aware restore (``rules=``, re-sharding every leaf by
-its logical axes) is ROADMAP item 22b; here every leaf returns to the
-device of the template's leaf.
+* **Mesh-agnostic / elastic restore** — leaves are stored whole, keyed by
+  tree path, with their *logical axes* in the manifest (``state_axes``).
+  ``restore(..., rules=)`` cuts every leaf with a recorded axes list by
+  ``rules.spec`` for this rank (``sharding.shard_slices``, reading only
+  that slice of the file) and places it on the rank's device: a state
+  saved from one mesh shape restores onto another, or onto one device,
+  and the reference reads it too.
+* **Save from a mesh** — ``save(..., rules=)`` gathers each sharded
+  leaf's pieces to rank 0 (every rank takes part), which puts them in
+  place by the ranks' coordinates and writes the reference's layout; the
+  other ranks wait on the atomic commit (a barrier).
+
+Without ``rules`` every leaf returns to the device of the template's leaf.
 """
 from __future__ import annotations
 
@@ -103,13 +113,34 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _write_leaves(tmp: str, tree, manifest: dict) -> None:
+def _axes_leaf(x) -> bool:
+    """A logical-axes tuple (``("vocab", "embed")``, ``()``) is a leaf of
+    the axes tree."""
+    return type(x) is tuple and all(e is None or isinstance(e, str)
+                                    for e in x)
+
+
+def _flatten_axes(axes_tree, prefix: str = "") -> dict:
+    if axes_tree is None or _axes_leaf(axes_tree):
+        return {prefix: axes_tree}
+    flat = {}
+    for k, child in _items(axes_tree):
+        flat.update(_flatten_axes(child, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
+def _write_leaves(tmp: str, tree, manifest: dict, state_axes=None) -> None:
+    ax_flat = _flatten_axes(state_axes) if state_axes is not None else {}
     for key, leaf in _flatten(tree).items():
         arr, dtype = _to_numpy(leaf)
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
-        manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape),
-                                   "dtype": dtype}
+        entry = {"file": fname, "shape": list(arr.shape), "dtype": dtype}
+        if key in ax_flat:
+            ax = ax_flat[key]
+            entry["logical_axes"] = list(ax) if isinstance(ax, tuple) \
+                else None
+        manifest["leaves"][key] = entry
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.flush()
@@ -127,10 +158,59 @@ def _atomic_json(path: str, doc: dict) -> None:
     os.replace(tmp, path)
 
 
-def save(ckpt_dir: str, step: int, state, extra: Optional[dict] = None
-         ) -> str:
+def gather_state(state, specs, rules):
+    """The whole value of every leaf of a rank's sharded ``state`` on the
+    host, on rank 0 (None on the others): each leaf cut by its spec in
+    ``specs`` (a tree of ``sharding.P`` like ``state``, e.g.
+    ``train_step.state_specs``) is gathered to rank 0, every rank's piece
+    once (``collectives.gather_to_root``), and put in place by the rank's
+    coordinates — a collective every rank joins, leaf by leaf in the same
+    order."""
+    import types
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import P, shard_slices
+
+    def flat_specs(tree, prefix=""):
+        if isinstance(tree, P):
+            return {prefix: tree}
+        out = {}
+        for k, child in _items(tree):
+            out.update(flat_specs(child, f"{prefix}/{k}" if prefix else k))
+        return out
+
+    spec_flat = flat_specs(specs)
+    mesh = rules.mesh
+    rank0 = mesh.rank == 0
+
+    def full(key, leaf):
+        spec = spec_flat.get(key)
+        if not (isinstance(leaf, torch.Tensor) and spec):
+            return _host(leaf) if rank0 else None
+        pieces = C.gather_to_root(leaf)
+        if not rank0:
+            return None
+        spec = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+        shape = tuple(n * rules.mesh_size(e) for n, e in
+                      zip(leaf.shape, spec))
+        whole = torch.empty(shape, dtype=leaf.dtype)
+        for r, piece in enumerate(pieces):
+            at = types.SimpleNamespace(shape=mesh.shape,
+                                       coords=mesh.coords_of(r))
+            whole[shard_slices(spec, shape, at)] = piece
+        return whole
+
+    out = _unflatten(state, full)
+    return out if rank0 else None
+
+
+def save(ckpt_dir: str, step: int, state, state_axes=None,
+         extra: Optional[dict] = None, *, rules=None, specs=None) -> str:
     """Atomic checkpoint of a tree of tensors / arrays.  Returns the
-    committed path.
+    committed path.  ``state_axes`` (the logical axes of the leaves, e.g.
+    ``train_step.state_axes``) are recorded for elastic restore.  With
+    ``rules`` ``state`` holds this rank's shards, cut by ``specs``: every
+    rank gathers, rank 0 writes, and all return the path once it is
+    committed.
 
     A step that is already committed keeps its LEAVES untouched: training
     is restart-deterministic (batches are a pure function of step), so the
@@ -138,6 +218,19 @@ def save(ckpt_dir: str, step: int, state, extra: Optional[dict] = None
     change between re-saves of the same step (the shard manifest after an
     elastic remesh), so a re-save merges the new ``extra`` into the
     committed manifest atomically instead of dropping it."""
+    if rules is not None:
+        host = gather_state(state, specs, rules)
+        path = os.path.join(ckpt_dir, f"step_{step:08d}")
+        err = None
+        if host is not None:
+            try:
+                path = save(ckpt_dir, step, host, state_axes, extra)
+            except BaseException as e:      # raised after the barrier
+                err = e
+        _barrier()
+        if err is not None:
+            raise err
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(final):
@@ -155,9 +248,15 @@ def save(ckpt_dir: str, step: int, state, extra: Optional[dict] = None
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     _write_leaves(tmp, state, {"step": int(step), "leaves": {},
-                               "extra": extra or {}})
+                               "extra": extra or {}}, state_axes)
     os.rename(tmp, final)          # the atomic commit point
     return final
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -168,10 +267,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, state_template, *, step: Optional[int] = None
-            ) -> Tuple[Any, int]:
+def restore(ckpt_dir: str, state_template, *, step: Optional[int] = None,
+            rules=None) -> Tuple[Any, int]:
     """Restore into the template's structure: each leaf as a tensor on the
-    template leaf's device (with its ``requires_grad``)."""
+    template leaf's device (with its ``requires_grad``).  With ``rules``
+    (the sharding rules of this rank's mesh) a leaf with recorded logical
+    axes is cut to this rank's piece of ``rules.spec`` — elastic restore
+    onto another mesh shape — and lands on the mesh's device."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -181,10 +283,18 @@ def restore(ckpt_dir: str, state_template, *, step: Optional[int] = None
 
     def load(key, tmpl):
         entry = manifest["leaves"][key]
-        t = _from_numpy(np.load(os.path.join(path, entry["file"])),
-                        entry["dtype"])
-        if isinstance(tmpl, torch.Tensor):
-            t = t.to(tmpl.device)
+        arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
+        dev = tmpl.device if isinstance(tmpl, torch.Tensor) else None
+        if rules is not None and entry.get("logical_axes") is not None:
+            from repro_torch.dist.sharding import shard_slices
+            spec = rules.spec(tuple(entry["logical_axes"]), arr.shape)
+            arr = arr[shard_slices(spec, arr.shape, rules.mesh)]
+            dev = rules.mesh.device
+        if arr.dtype.kind == "V":    # the reference's bf16 (ml_dtypes)
+            arr = np.asarray(arr).view(np.uint16)
+        t = _from_numpy(np.array(arr), entry["dtype"])
+        if dev is not None:
+            t = t.to(dev)
             if tmpl.requires_grad:
                 t.requires_grad_(True)
         return t
@@ -283,21 +393,35 @@ def restore_sharded(ckpt_dir: str, *, step: Optional[int] = None
 
 
 class CheckpointManager:
-    """keep-N rotation + async disk writes."""
+    """keep-N rotation + async disk writes.  With ``rules`` (a mesh's
+    sharding rules) and ``specs`` (how the saved state is cut) every rank
+    calls ``save_async`` and ``wait`` at the same points: the gather is
+    collective, rank 0 alone writes, and ``wait`` ends in a barrier, so
+    no rank reads a step before its commit."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, rules=None,
+                 specs=None):
         self.dir = ckpt_dir
         self.keep = keep
+        self.rules = rules
+        self.specs = specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False
 
-    def save_async(self, step: int, state) -> None:
-        host_state = _unflatten(state, lambda _, leaf: _host(leaf))
+    def save_async(self, step: int, state, state_axes=None) -> None:
+        if self.rules is not None:
+            host_state = gather_state(state, self.specs, self.rules)
+        else:
+            host_state = _unflatten(state, lambda _, leaf: _host(leaf))
         self.wait()
+        self._pending = True
+        if host_state is None:          # a rank other than 0 on a mesh
+            return
 
         def _write():
             try:
-                save(self.dir, step, host_state)
+                save(self.dir, step, host_state, state_axes)
                 prune(self.dir, self.keep)
             except BaseException as e:    # re-raised by wait()
                 self._error = e
@@ -306,13 +430,17 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the pending write; raises what it raised."""
+        """Join the pending write (on a mesh, then meet every rank at a
+        barrier); raises what the write raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending and self.rules is not None:
+            _barrier()
+        self._pending = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, template):
-        return restore(self.dir, template)
+    def restore_latest(self, template, rules=None):
+        return restore(self.dir, template, rules=rules)

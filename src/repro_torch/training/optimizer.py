@@ -1,5 +1,5 @@
 """AdamW with global-norm clipping and a cosine schedule (PyTorch port of
-``training/optimizer.py``, single device).
+``training/optimizer.py``).
 
 The moments are float32 whatever the parameter dtype; the update is
 computed in float32 and cast back on write; decoupled weight decay applies
@@ -9,6 +9,11 @@ updates the parameters and both moments in place (the full-width model's
 optimizer state is most of the card's memory, so no second copy is made)
 and returns the same tensors.  Parameter trees are nested dicts of
 tensors (``models/nn.Params``).
+
+On a mesh (``training/train_step.make_train_step(rules=)``) each rank
+holds its shards of the parameters and moments (ZeRO: the moments take
+the parameters' specs) and runs the same update on them; only the global
+norm needs the mesh, and the caller passes it in (``sharded_global_norm``).
 """
 from __future__ import annotations
 
@@ -63,17 +68,43 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def sharded_global_norm(grads, specs) -> torch.Tensor:
+    """The global norm of a tree of gradient shards: each leaf's local sum
+    of squares is psum'd over the mesh axes that shard it (``specs``, a
+    tree of ``P`` like ``grads``) and over no other, so a leaf replicated
+    over ``model`` or ``pod`` counts once.  Leaves are grouped by those
+    axes, one psum a group."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import spec_axes
+    groups: dict = {}
+    for g, sp in zip(leaves(grads), leaves(specs)):
+        axes = spec_axes(sp)
+        sq = torch.sum(torch.square(g.float()))
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    mesh = C.current_mesh()
+    total = None
+    for axes in sorted(groups):
+        part = C.psum(groups[axes], tuple(a for a in mesh.axis_names
+                                          if a in axes)) if axes \
+            else groups[axes]
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """Scale ``grads`` to a global norm of at most ``max_norm``; ``norm``
+    is computed here unless given (a mesh's ``sharded_global_norm``)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return nn.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 def apply(cfg: AdamWConfig, params, opt: OptState,
-          grads) -> Tuple[Any, OptState, dict]:
+          grads, norm=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step; ``params``, ``opt.m`` and ``opt.v`` are updated in
-    place (and returned).  ``grads`` has the tree of ``params``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    place (and returned).  ``grads`` has the tree of ``params``; ``norm``
+    is their global norm when the caller computed it (on a mesh)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     count = opt.count + 1
     lr = schedule(cfg, count)
     countf = count.float()

@@ -270,3 +270,33 @@ def batcher_rank(rank, arch, shape, axes, params_np, traffic, snap_round):
             "live": _np(st1["active"] & ~st1["aborted"]),
             "rebuilt_equal": rebuilt_equal}
     return out
+
+
+def encdec_rank(rank, shape, axes, table, params, src, toks):
+    """seamless on this rank of the mesh under ``table``: the encoder's
+    prefill over the rank's weight shards, then T single steps fed
+    ``toks[:, t]`` at positions t; returns the logits, the final page
+    table, the cross K/V piece's shape and the fallback report."""
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                              dtype="float32")
+    mesh = M.make_mesh(shape, axes, "cpu")
+    rules = getattr(SH, table)(mesh)
+    p = convert.from_numpy_tree(params, cfg,
+                                specs=EG.mesh_param_specs(cfg, params, rules),
+                                mesh=mesh)
+    B, T = toks.shape
+    state, _ = EG.make_decode_state(cfg, B, S_max=S_MAX, page_size=PAGE_SIZE,
+                                    rules=rules, device="cpu")
+    state = EG.prepare_encdec_state(cfg, p, state, torch.as_tensor(src),
+                                    rules=rules)
+    step = EG.make_serve_step(cfg, S_max=S_MAX, page_size=PAGE_SIZE,
+                              rules=rules)
+    out = []
+    for t in range(T):
+        lg, state = step(p, state,
+                         torch.as_tensor(toks[:, t:t + 1], dtype=torch.int32),
+                         torch.full((B,), t, dtype=torch.int32))
+        out.append(_np(lg))
+    return {"logits": np.stack(out), "table": _np(state["table"].table),
+            "cross_shape": tuple(state["cross_k"].shape),
+            "report": EG.fallback_report(cfg, rules)}

@@ -263,20 +263,27 @@ def test_rebuild_per_strategy_matches_reference(params, strategy):
 
 
 def test_unported_paths_raise():
-    """The one family the mesh does not serve (encdec, whose encoder
-    prefill over sharded weights is ROADMAP item 22b) raises and names its
-    item; every family is served on one device and the fallback reasons
-    keep the reference's strings, the ssm and encdec ones included.  A
-    hybrid depth below one group of mamba layers is refused (the reference's
-    decode would find no page table)."""
+    """Every family, encdec included, is served on a mesh now
+    (``tests/test_torch_mesh_encdec.py``); rules of another mesh than the
+    bound one are refused.  Every family is served on one device and the
+    fallback reasons keep the reference's strings, the ssm and encdec ones
+    included.  A hybrid depth below one group of mamba layers is refused
+    (the reference's decode would find no page table)."""
     from repro.configs import get_smoke_config as j_smoke_cfg
     from repro_torch.configs import get_smoke_config as smoke
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
     _, tc = _cfgs()
     ec = smoke("seamless-m4t-large-v2")
-    with pytest.raises(NotImplementedError, match="22b"):
-        EG.make_serve_step(ec, S_max=16, rules=object())
-    with pytest.raises(NotImplementedError, match="22b"):
-        EG.make_decode_state(ec, 2, 16, rules=object(), device="cpu")
+    C.set_mesh(C.Mesh((1, 1), ("data", "model"), "cpu"))
+    try:
+        other = SH.serve_rules(C.AbstractMesh((1, 1), ("data", "model")))
+        with pytest.raises(ValueError, match="bound mesh"):
+            EG.make_serve_step(ec, S_max=16, rules=other)
+        with pytest.raises(ValueError, match="bound mesh"):
+            EG.make_decode_state(ec, 2, 16, rules=other, device="cpu")
+    finally:
+        C.set_mesh(None)
     jc, _ = _cfgs()
     assert EG.fallback_report(tc) == JEG.fallback_report(jc)
     assert EG.fallback_report(dataclasses.replace(tc, fused_kernel=True)) \
