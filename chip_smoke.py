@@ -170,10 +170,29 @@ order, each phase printing one JSON line:
                determinism through ``TrainRunner``'s checkpoint (save at
                step 3, restore on start, continue to 6: the losses of the
                uninterrupted run).
-13. mesh     — serving on a device mesh: 4 ranks spawned on the one card
-               (``launch/mesh.run_spmd``, gloo carrying CUDA tensors
-               through the host) as a (data 2, model 2) mesh, each
-               holding only its pieces of the weights, pools and state.
+13. collectives — the mesh's collectives on the card: 4 ranks spawned
+               on card 0 (``launch/mesh.run_spmd``) as a (data 2, model 2)
+               mesh, each op of ``dist/collectives`` (psum in bf16 and
+               f32, pmax, all_gather tiled and stacked, all_to_all,
+               reduce_scatter, ppermute, gather_to_root) at 4 KiB, 1 MiB
+               and 96 MiB a rank (past one 64-MiB slot of the peer
+               buffers) under the peer transport (``dist/peer``: each
+               rank's workspace on the card, opened by the others through
+               CUDA IPC) and under gloo named explicitly (staged through
+               the host): every result equal bit for bit, the same bytes
+               counted, none staged but gloo's; 50 collectives in a row of
+               alternating sizes and groups, equal; the ms a call for each
+               transport, op and size.  With a card a rank (4 or more
+               cards) the same one rank a card under NCCL; with fewer it
+               prints that NCCL was not run.
+14. mesh     — serving on a device mesh: 4 ranks spawned by
+               ``launch/mesh.run_spmd``, placed by ``card_of`` (all on
+               card 0 on a one-card host: the peer transport; one a card
+               on a host with four: NCCL), as a (data 2, model 2) mesh,
+               each holding only its pieces of the weights, pools and
+               state; no collective of any rank staged through the host
+               (``COLLECTIVE_STATS["staged"]`` 0), the placement and the
+               transport printed.
                qwen2.5-32b at full width, depth 64 -> 4, seeded bf16
                weights cut by ``engine.mesh_param_specs``, served by
                ``ContinuousBatcher(rules=)`` under ``serve_rules`` (gspmd:
@@ -212,9 +231,10 @@ order, each phase printing one JSON line:
                (its layer-0 pools and rank-local block table at the
                serve's peak state, the most live pages) against its
                plain version, timed beside its bound and SDPA.
-14. mesh_train — training on a device mesh, ranks spawned on the one card
-               as in phase 13.  codeqwen1.5-7b at full width (d_model
-               4096, 32 MHA heads of 128, d_ff 13440, vocab 92416), depth
+15. mesh_train — training on a device mesh, ranks placed as in phase 14
+               and nothing staged through the host.  codeqwen1.5-7b at
+               full width (d_model 4096, 32 MHA heads of 128, d_ff 13440,
+               vocab 92416), depth
                32 -> 1 (0.99 B parameters), seeded bf16 weights, global
                batch 8 x 256, 3 steps.  (a) The manual-pod compressed
                step (``make_train_step_manual_pod``) on (pod 2, data 2,
@@ -370,11 +390,11 @@ TRAIN_F32_TOL = 1e-4
 TRAIN_RESTART_TOL = 1e-6
 H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 peak
 
-# the mesh phase: 4 ranks on the one card as a (data 2, model 2) mesh,
-# gloo carrying their collectives through the host.  qwen2.5-32b at full
+# the mesh phase: 4 ranks as a (data 2, model 2) mesh, sharing the one card
+# (the peer transport) or one a card (NCCL).  qwen2.5-32b at full
 # width, depth 64 -> 4, served under serve_rules and serve_manual_rules
 # at the serve phase's batch, page size and K over a shorter traffic (the
-# gloo collectives make a mesh step several times the one-device step's);
+# collectives make a mesh step several times the one-device step's);
 # the pool (a multiple of the 4 ranks) never grows; the state after round
 # MESH_MID_ROUND is the one the mid-run logits and the megastep check
 # start from.  Then, manual rules only and at small depth, granite-moe (2
@@ -402,7 +422,20 @@ MESH_TIMEOUT_S = 180
 MESH_ENCDEC = ("seamless-m4t-large-v2", 4)
 MESH_ENCDEC_CHECKS = (9, 19, 29, 39)
 
-# phase mesh_train: ranks on the one card, gloo through the host.
+# the collectives check: 4 ranks on the card as a (data 2, model 2) mesh,
+# every op of ``dist/collectives`` at payloads of COLL_SIZES bytes a rank
+# (the last one past a peer slot, ``dist/peer.SLOT_BYTES``) under the
+# transport the placement gives and under gloo named explicitly (staged
+# through the host), each result equal bit for bit across the two; then
+# COLL_BACK_TO_BACK collectives in a row of alternating sizes and groups.
+# Each op is timed over COLL_REPS back-to-back calls a size.  With a card
+# a rank (4 or more cards), the same again one rank a card on NCCL
+COLL_SIZES = (4 << 10, 1 << 20, 96 << 20)
+COLL_REPS = (20, 10, 2)
+COLL_BACK_TO_BACK = 50
+COLL_TIMEOUT_S = 300
+
+# phase mesh_train: ranks placed as in phase mesh.
 # codeqwen1.5-7b at full published width (d 4096, 32 MHA heads of 128, d_ff
 # 13440, vocab 92416), depth 32 -> 1 (0.99 B parameters), random bf16
 # weights from the seed, global batch 8 x 256, MT_STEPS steps: (a) the
@@ -426,6 +459,23 @@ MT_TIMEOUT_S = 300
 
 
 T0 = time.time()
+
+
+def no_staged(where: str) -> None:
+    """Fail unless no collective of this rank was staged through the host
+    since the last ``reset_stats``."""
+    from repro_torch.dist import collectives as C
+    if C.COLLECTIVE_STATS["staged"]:
+        raise AssertionError(f"{where}: {C.COLLECTIVE_STATS['staged']} "
+                             f"collectives staged through the host")
+
+
+def mesh_where(mesh) -> dict:
+    """The placement and the transport of this rank's mesh."""
+    import torch
+    from repro_torch.launch.mesh import placement
+    return dict(placement=placement(mesh.size, torch.cuda.device_count()),
+                transport=mesh.transport, card=mesh.device.index)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1952,7 +2002,7 @@ def phase_families(main_cfg, main_params, checks):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: serving on a device mesh, 4 ranks sharing the one card.
+# Phase 14: serving on a device mesh, 4 ranks placed by launch/mesh.card_of.
 
 def mesh_config(table: str = "serve_rules", arch: str = ARCH,
                 layers: int = MESH_LAYERS):
@@ -2356,10 +2406,12 @@ def mesh_rank(rank: int, ref: dict) -> dict:
     from repro_torch.dist import sharding as SH
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving import engine as EG
+    from repro_torch.dist import collectives as C
     mesh = make_mesh(MESH_SHAPE, MESH_AXES, DEV)
+    C.reset_stats()
     wrappers = kernel_wrappers()
     checks = {k: 0 for k in wrappers}
-    out = {"rank": rank}
+    out = {"rank": rank, **mesh_where(mesh)}
     for table in ("serve_rules", "serve_manual_rules"):
         cfg = mesh_config(table)
         rules = getattr(SH, table)(mesh)
@@ -2469,6 +2521,8 @@ def mesh_rank(rank: int, ref: dict) -> dict:
     torch.cuda.empty_cache()
     out["dht"] = mesh_dht(rank)
     out["checks"] = checks
+    out["staged"] = C.COLLECTIVE_STATS["staged"]
+    out["collectives"] = C.COLLECTIVE_STATS["calls"]
     return out
 
 
@@ -2526,7 +2580,7 @@ def attention_tokens(pk, bt, pos) -> int:
 
 
 def phase_mesh() -> dict:
-    """Phase 13 (module docstring): the one-device runs, then 4 ranks on
+    """Phase 14 (module docstring): the one-device runs, then 4 ranks on
     the card.  Returns the launches per rank on the mesh's serve paths
     and K1's rows at the two mesh shapes."""
     import torch
@@ -2538,6 +2592,16 @@ def phase_mesh() -> dict:
     n = MESH_SHAPE[0] * MESH_SHAPE[1]
     outs = run_spmd(mesh_rank, n, (ref,), device=DEV,
                     timeout_s=MESH_TIMEOUT_S, threads=2)
+    want = "nccl" if torch.cuda.device_count() >= n else "peer"
+    for o in outs:
+        if o["transport"] != want or o["staged"]:
+            raise AssertionError(f"mesh: rank {o['rank']} ran on "
+                                 f"{o['transport']} with {o['staged']} of "
+                                 f"{o['collectives']} collectives staged; "
+                                 f"expected {want}, none staged")
+    where = dict(placement=outs[0]["placement"], transport=want,
+                 cards_by_rank=[o["card"] for o in outs],
+                 staged_by_rank=[o["staged"] for o in outs])
     rows, launches = [], {}
     for table in ("serve_rules", "serve_manual_rules"):
         r0 = outs[0][table]
@@ -2553,6 +2617,7 @@ def phase_mesh() -> dict:
                                                     ref["sampled"][rid]))
         stats = {k: v for k, v in r0.items() if k not in ("sampled", "k1")}
         emit("mesh", layout=table, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+             **where,
              arch=ARCH, layers=MESH_LAYERS, batch=BATCH,
              page_size=PAGE_SIZE, megastep=MEGASTEP, n_pages=MESH_PAGES,
              traffic=MESH_TRAFFIC, tables_equal_every_round=True,
@@ -2571,8 +2636,179 @@ def phase_mesh() -> dict:
                              "up to the ranks' live keys")
     emit("mesh_dht", by_rank=dht)
     emit("mesh_done", seconds=time.perf_counter() - t0,
-         reference_seconds=ref_s, k1_rows=rows)
+         reference_seconds=ref_s, k1_rows=rows, **where)
     return {"launches": launches, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# The collectives check: every op under two transports, bit for bit.
+
+def coll_ops(rank: int, nbytes: int) -> dict:
+    """The check's ops on the bound (data 2, model 2) mesh, on operands
+    of ``nbytes`` a rank drawn on the card from the seed, the rank and the
+    size."""
+    import torch
+    from repro_torch.dist import collectives as C
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1000 * rank + nbytes)
+    f = torch.randn((4, nbytes // 16), generator=g, device=DEV)
+    b = torch.randn((4, nbytes // 8), generator=g,
+                    device=DEV).to(torch.bfloat16)
+    both = ("data", "model")
+    return {
+        "psum_bf16": lambda: C.psum(b, both),
+        "psum_f32": lambda: C.psum(f, both),
+        "pmax": lambda: C.pmax(f, "data"),
+        "all_gather_tiled": lambda: C.all_gather(f, "model", dim=1),
+        "all_gather_stacked": lambda: C.all_gather(b, both, tiled=False),
+        "all_to_all": lambda: C.all_to_all(f, both),
+        "reduce_scatter": lambda: C.reduce_scatter(f, both, dim=0),
+        "ppermute": lambda: C.ppermute(f, "data", [(0, 1), (1, 0)]),
+        "gather_to_root": lambda: C.gather_to_root(b, 0),
+    }
+
+
+def coll_bytes(out):
+    """A result as bytes (a list of host tensors from ``gather_to_root``
+    stacked first; None stays None)."""
+    import torch
+    from repro_torch.dist.peer import as_bytes
+    if out is None:
+        return None
+    if isinstance(out, list):
+        out = torch.stack(out)
+    return as_bytes(out.contiguous())
+
+
+def coll_back_to_back(rank: int) -> list:
+    """``COLL_BACK_TO_BACK`` collectives in a row: a psum over every rank
+    of one slot and a quarter, then an all_gather and a psum of 4 KiB over
+    the pairs along ``data`` (a writer reuses its slots while readers of
+    its last one may still be reading)."""
+    import torch
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import peer as PEER
+    g = torch.Generator(device=DEV).manual_seed(SEED + 77 + rank)
+    big = torch.randn((4, 5 * PEER.SLOT_BYTES // 64), generator=g,
+                      device=DEV)
+    small = torch.randn((4, 512), generator=g, device=DEV).to(torch.bfloat16)
+    outs = []
+    for i in range(COLL_BACK_TO_BACK):
+        if i % 3 == 0:
+            outs.append(C.psum(big * (i + 1), ("data", "model")))
+        elif i % 3 == 1:
+            outs.append(C.all_gather(small + i, "data"))
+        else:
+            outs.append(C.psum(small * i, "data"))
+    return outs
+
+
+def coll_rank(rank: int, transports) -> dict:
+    """One rank of the check: a mesh per transport (None: the one the
+    placement gives), then for each size and op, the op under each
+    transport in turn, equal bit for bit to the first's result, with the
+    same bytes counted and nothing staged but on gloo; the ms a call over
+    back-to-back calls; then the back-to-back run under each."""
+    import torch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.mesh import make_mesh, placement
+    meshes = [make_mesh(MESH_SHAPE, MESH_AXES, DEV, transport=t)
+              for t in transports]
+    names = [m.transport for m in meshes]
+    ms = {t: {} for t in names}
+    staged = {t: 0 for t in names}
+    for nbytes, reps in zip(COLL_SIZES, COLL_REPS):
+        for t in names:
+            ms[t][nbytes] = {}
+        for op in coll_ops(rank, nbytes):
+            first = None
+            for t, mesh in zip(names, meshes):
+                C.set_mesh(mesh)
+                fn = coll_ops(rank, nbytes)[op]
+                C.reset_stats()
+                got = coll_bytes(fn())
+                by_op = {k: dict(v)
+                         for k, v in C.COLLECTIVE_STATS["by_op"].items()}
+                staged[t] += C.COLLECTIVE_STATS["staged"]
+                if first is None:
+                    first = (got, by_op)
+                elif not ((got is None and first[0] is None) or torch.equal(
+                        got.to(first[0].device), first[0])) \
+                        or by_op != first[1]:
+                    raise AssertionError(
+                        f"collectives: {op} of {nbytes} bytes on rank "
+                        f"{rank} under {t} differs from {names[0]}")
+                del got
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                ms[t][nbytes][op] = (time.perf_counter() - t0) * 1e3 / reps
+            del first
+    runs = []
+    for t, mesh in zip(names, meshes):
+        C.set_mesh(mesh)
+        runs.append([coll_bytes(o) for o in coll_back_to_back(rank)])
+    for t, run in zip(names[1:], runs[1:]):
+        if not all(torch.equal(a, b) for a, b in zip(run, runs[0])):
+            raise AssertionError(f"collectives: back-to-back run under {t} "
+                                 f"differs from {names[0]} on rank {rank}")
+    return {"rank": rank, "transports": names, "ms": ms, "staged": staged,
+            "placement": placement(meshes[0].size,
+                                   torch.cuda.device_count()),
+            "card": torch.cuda.current_device()}
+
+
+def phase_collectives() -> dict:
+    """The ``collectives`` check (constants above): 4 ranks sharing card
+    0 under the peer buffers and under gloo; with 4 or more cards also
+    one rank a card under NCCL and gloo.  Prints the ms a call for each
+    transport, op and size beside the card."""
+    import torch
+    from repro_torch.dist import peer as PEER
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.perf_counter()
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    cards = torch.cuda.device_count()
+    runs = {}
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    try:
+        # the shared placement on a host with a card a rank: the ranks see
+        # one card only
+        if cards >= n:
+            os.environ["CUDA_VISIBLE_DEVICES"] = (env or "0").split(",")[0]
+        runs["shared"] = run_spmd(coll_rank, n, ((None, "gloo"),),
+                                  device=DEV, timeout_s=COLL_TIMEOUT_S)
+    finally:
+        if env is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = env
+    if cards >= n:
+        runs["per card"] = run_spmd(coll_rank, n, ((None, "gloo"),),
+                                    device=DEV, timeout_s=COLL_TIMEOUT_S)
+    card = nvidia_smi()
+    for where, outs in runs.items():
+        want = ["peer" if where == "shared" else "nccl", "gloo"]
+        for o in outs:
+            if o["transports"] != want or o["placement"] != where:
+                raise AssertionError(f"collectives: rank {o['rank']} ran "
+                                     f"{o['transports']} {o['placement']}, "
+                                     f"expected {want} {where}")
+            if o["staged"][want[0]] != 0 or o["staged"]["gloo"] == 0:
+                raise AssertionError(f"collectives: staged {o['staged']} "
+                                     f"on rank {o['rank']}")
+        for nbytes in COLL_SIZES:
+            emit("collectives", placement=where, card=card,
+                 mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+                 bytes_a_rank=nbytes, slot_bytes=PEER.SLOT_BYTES,
+                 cards_by_rank=[o["card"] for o in outs],
+                 bitwise_equal=True, staged=outs[0]["staged"],
+                 ms_a_call={t: outs[0]["ms"][t][nbytes] for t in want})
+    emit("collectives_done", seconds=time.perf_counter() - t0,
+         back_to_back=COLL_BACK_TO_BACK, bitwise_equal=True,
+         nccl=("run one rank a card" if cards >= n else
+               f"not run: {cards} card(s), NCCL needs one a rank ({n})"))
 
 
 def mt_config(layers: int = MT_LAYERS, smoke: bool = False):
@@ -2690,6 +2926,7 @@ def mt_pod_rank(rank: int, shape, ref: dict) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training import train_step as TS
     mesh = make_mesh(shape, ("pod", "data", "model"), DEV)
+    C.reset_stats()
     cfg = mt_config()
     st = mt_init(cfg, DEV)
     err = TS.init_pod_error_buffers(st.params, shape[0], mesh=mesh)
@@ -2706,6 +2943,7 @@ def mt_pod_rank(rank: int, shape, ref: dict) -> dict:
         st, err, m = step(st, err, b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        no_staged(f"manual pod step {i}")
         stats = {k: dict(v) for k, v in C.COLLECTIVE_STATS["by_op"].items()}
         wire = stats["all_gather"]["sent"]
         if wire != wire_want:
@@ -2719,7 +2957,7 @@ def mt_pod_rank(rank: int, shape, ref: dict) -> dict:
                           compressed_wire_bytes=wire,
                           collectives=C.COLLECTIVE_STATS["calls"],
                           by_op=stats, digest=param_digest(st.params)))
-    return {"rank": rank, "steps": steps,
+    return {"rank": rank, "steps": steps, **mesh_where(mesh),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -2741,7 +2979,9 @@ def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
 
     # (b) the rules step on (data 2, model 2)
     mesh = make_mesh(MT_RULES_SHAPE, ("data", "model"), DEV)
+    out.update(mesh_where(mesh))
     rules = SH.train_rules(mesh)
+    C.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     st = mt_init(cfg, DEV, rules)
     torch.cuda.empty_cache()
@@ -2755,6 +2995,7 @@ def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
         st, m = step(st, b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        no_staged(f"rules step {i}")
         loss, gn = float(m["loss"]), float(m["grad_norm"])
         if not (np.isfinite(loss) and np.isfinite(gn)):
             raise AssertionError(f"rules step {i}: loss {loss}, grad norm "
@@ -2848,6 +3089,7 @@ def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
     w = pipe_blocks(pcfg, range(sl.start, sl.stop), DEV)
     fwd = PL.make_pipelined_forward(pcfg, mesh3, pipe_apply(pcfg),
                                     microbatches=MT_PIPE_M)
+    no_staged("the f32 twin, the save, the restore and its step")
     C.reset_stats()
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -2872,6 +3114,7 @@ def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
     if f32_err > PIPE_F32_TOL:
         raise AssertionError(f"pipeline f32 twin: {f32_err} beyond atol "
                              f"{PIPE_F32_TOL} + rtol |y|")
+    no_staged("the pipeline")
     out["pipeline"] = dict(rel_err=rel, seconds=pipe_s, collectives=pipe_coll,
                            f32_excess_over_rtol=f32_err,
                            bubble=PL.bubble_fraction(MT_PIPE_M,
@@ -2880,7 +3123,7 @@ def mt_rules_rank(rank: int, ref: dict, ckpt_dir: str) -> dict:
 
 
 def phase_mesh_train() -> dict:
-    """Phase 14 (module docstring).  Returns the kernels' launches (none:
+    """Phase 15 (module docstring).  Returns the kernels' launches (none:
     training and the pipeline reach no TPU kernel in the reference)."""
     import tempfile
     import torch
@@ -2908,6 +3151,8 @@ def phase_mesh_train() -> dict:
                              f"{pod[0]['steps'][0]['loss']} vs one device "
                              f"{ref['loss0']}")
     emit("mesh_train_pod", card=nvidia_smi(), arch=MT_ARCH,
+         placement=pod[0]["placement"], transport=pod[0]["transport"],
+         cards_by_rank=[o["card"] for o in pod], staged=0,
          layers=MT_LAYERS, params=ref["n_params"],
          mesh=dict(zip(("pod", "data", "model"), pod_shape)),
          four_ranks_fit=four, est_rank_peak_gib=est / 2 ** 30,
@@ -2924,6 +3169,8 @@ def phase_mesh_train() -> dict:
         rules_s = time.perf_counter() - t0
     r0 = outs[0]
     emit("mesh_train_rules", card=nvidia_smi(), arch=MT_ARCH,
+         placement=r0["placement"], transport=r0["transport"],
+         cards_by_rank=[o["card"] for o in outs], staged=0,
          layers=MT_LAYERS, mesh=dict(zip(("data", "model"), MT_RULES_SHAPE)),
          batch=MT_BATCH, seq=MT_SEQ, one_device_loss0=ref["loss0"],
          **{k: v for k, v in r0["rules"].items()},
@@ -3398,6 +3645,7 @@ def main() -> int:
     phase_profile(cfg, params)
     del params
     torch.cuda.empty_cache()
+    phase_collectives()
     mesh = phase_mesh()
     for e, key in zip(kernels, ("K1", "K2", "K3")):
         e["launches_by_mesh"] = {t: n[key]

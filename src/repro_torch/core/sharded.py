@@ -14,8 +14,8 @@ operations serialize at the owner: the paper's per-cell atomicity, with
 ranks as the processes and the all-to-all as the interconnect.
 
 SPMD: every rank of the axis calls ``apply_fn`` with its own requests;
-the collectives are ``dist/collectives``'s (through the host for CUDA
-tensors under gloo).
+the collectives are ``dist/collectives``'s (gloo on the host, the peer
+buffers or NCCL on the card).
 """
 from __future__ import annotations
 

@@ -23,16 +23,38 @@ in the reference, by adding bf16 tensors in member order.
 member-order sum at each chunk's owner: it gives the bits of ``psum``'s
 chunk without gathering n full copies.
 
-The backend is ``gloo``, also on the card: NCCL refuses two ranks on one
-device, and the port's mesh shares one H100 between its ranks.  ``gloo``
-runs ``all_gather`` and ``all_to_all`` on host tensors only, so a
-collective on a CUDA tensor is STAGED through the host here, explicitly:
-the tensor is copied to the host, the collective runs there, and the
-result is copied back.  ``COLLECTIVE_STATS`` counts the calls and the
-staged ones, and per op (``by_op``) the calls and the bytes this rank put
-on the wire and took off it, summed over the other members (a gather of
-x over n ranks sends x to n - 1 of them; an all-to-all sends n - 1 of its
-n chunks); nothing falls back quietly.
+Three transports move the bytes, one per mesh, fixed by where its ranks
+are (``transport_for``; ``launch/mesh.card_of`` places them):
+
+- ``"gloo"`` for ranks on the CPU: gloo's ``all_gather``,
+  ``all_to_all_single``, ``gather`` and ``isend``/``irecv`` on host
+  tensors.
+- ``"peer"`` for ranks that share one card (NCCL refuses two ranks on
+  one device): the payloads go through each rank's workspace on the card,
+  opened by the others through CUDA IPC, with a barrier a round in
+  shared host memory (``dist/peer``).
+- ``"nccl"`` for ranks with a card each: ``all_gather_into_tensor`` and
+  ``all_to_all_single`` on card tensors in NCCL subgroups built beside
+  the gloo ones (``ppermute`` and ``gather_to_root`` are all-to-alls with
+  one nonzero split).
+
+A mesh's transport moves the tensors on the mesh's device; a host tensor
+on a card mesh (the mesh DHT's CPU twin) takes gloo.  A mesh may be built
+on the card with ``transport="gloo"`` to check one transport against
+another: a collective on a CUDA tensor is then STAGED through the host
+(copied out, gloo, copied back) and counted as such.  No transport uses
+a backend's reduction, so all three give the same bits.  Every subgroup
+keeps its gloo group, under every transport: it carries the host tensors
+and the small host exchanges (the placement, the peer buffers' handles).
+``gather_to_root``'s result is on the host at the root (a
+checkpoint writes it): on the card its pieces meet on the card and cross
+to the host once, at the root.
+
+``COLLECTIVE_STATS`` counts the calls and the staged ones, and per op
+(``by_op``) the calls and the bytes this rank put on the wire and took off
+it, summed over the other members (a gather of x over n ranks sends x to
+n - 1 of them; an all-to-all sends n - 1 of its n chunks), the same in
+every transport; nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -41,6 +63,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.dist import peer as PEER
 
 COLLECTIVE_STATS = {"calls": 0, "staged": 0, "by_op": {}}
 
@@ -106,15 +130,33 @@ class RecordingMesh(AbstractMesh):
         self.coords: Dict[str, int] = {a: 0 for a in self.axis_names}
 
 
+def transport_for(device_type: str, cards: Sequence[int]) -> str:
+    """The transport of a mesh whose ranks sit on ``cards`` (rank r on
+    card ``cards[r]``): gloo on the CPU, the peer buffers where the ranks
+    share one card, NCCL where each has its own."""
+    if device_type != "cuda":
+        return "gloo"
+    if len(set(cards)) == 1:
+        return "peer"
+    if len(set(cards)) == len(cards):
+        return "nccl"
+    raise ValueError(f"ranks on cards {list(cards)}: neither one card "
+                     f"shared by all nor one card a rank")
+
+
 class Mesh(AbstractMesh):
     """The named mesh over the initialised default process group (or over
     one process when the mesh has a single rank and no group exists).
-    ``device`` is where this rank's tensors live."""
+    ``device`` is where this rank's tensors live; ``transport`` follows
+    from where the ranks are (``transport_for``) unless named, which is
+    only for checking one transport against another."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device="cpu"):
+                 device="cpu", transport: Optional[str] = None):
         super().__init__(shape, axis_names)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if dist.is_available() and dist.is_initialized():
             world, rank = dist.get_world_size(), dist.get_rank()
         else:
@@ -124,11 +166,37 @@ class Mesh(AbstractMesh):
                              f"the process group has {world}")
         self.rank = rank
         self.coords: Dict[str, int] = self.coords_of(rank)
+        cards = [self.device.index] * world
+        if self.device.type == "cuda" and world > 1:
+            dist.all_gather_object(cards, self.device.index)
+        placed = transport_for(self.device.type, cards)
+        # gloo moves anything; the peer buffers work over host memory too
+        allowed = {placed, "gloo"} | ({"peer"} if self.device.type == "cpu"
+                                      else set())
+        if transport is None:
+            transport = placed
+        elif transport not in allowed:
+            raise ValueError(f"transport {transport!r}: ranks on "
+                             f"{self.device.type} {cards} take one of "
+                             f"{sorted(allowed)}")
+        self.transport = transport
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self._members: Dict[Tuple[str, ...], List[int]] = {}
+        self._nccl: Dict[Tuple[str, ...], object] = {}
+        self._nccl_world = None
+        if transport == "nccl" and world > 1:
+            self._nccl_world = dist.new_group(list(range(world)),
+                                              backend="nccl")
         names = [a for a in self.axis_names if self.shape[a] > 1]
-        for k in range(1, len(names) + 1):
-            for axes in itertools.combinations(names, k):
-                self._build_groups(axes, world)
+        # the axis combinations in one fixed order; a combination's place
+        # in it names its groups' mailboxes in the peer transport
+        self._kinds = [axes for k in range(1, len(names) + 1)
+                       for axes in itertools.combinations(names, k)]
+        for axes in self._kinds:
+            self._build_groups(axes, world)
+        self.peer = (PEER.PeerTransport(rank, world, self.device,
+                                        len(self._kinds))
+                     if transport == "peer" and world > 1 else None)
 
     def _build_groups(self, axes: Tuple[str, ...], world: int) -> None:
         others = [a for a in self.axis_names if a not in axes]
@@ -144,11 +212,33 @@ class Mesh(AbstractMesh):
                 ranks.append(self.rank_of(c))
             group = (dist.group.WORLD if n == world
                      else dist.new_group(ranks=ranks, backend="gloo"))
+            nccl = None
+            if self.transport == "nccl":
+                nccl = (self._nccl_world if n == world
+                        else dist.new_group(ranks=ranks, backend="nccl"))
             if self.rank in ranks:
                 self._groups[axes] = group
+                self._members[axes] = ranks
+                self._nccl[axes] = nccl
 
     def group(self, axes: Tuple[str, ...]):
         return self._groups[axes]
+
+    def members(self, axes: Tuple[str, ...]) -> List[int]:
+        """The global ranks of this rank's group over ``axes``, in member
+        order."""
+        return self._members[axes]
+
+    def kind(self, axes: Tuple[str, ...]) -> int:
+        """The index of the axis combination ``axes`` (its groups'
+        mailboxes in the peer transport); the last holds every rank."""
+        return self._kinds.index(axes)
+
+    def route(self, x: torch.Tensor) -> str:
+        """The transport that moves ``x``: the mesh's for tensors on its
+        device type, gloo for the rest."""
+        return (self.transport if x.device.type == self.device.type
+                else "gloo")
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -229,18 +319,24 @@ def _gather(x: torch.Tensor, axes, op: str = "all_gather"
         moved = (n - 1) * x.numel() * x.element_size()
         _count(op, moved, moved, False)
         return x.detach().new_empty((n,) + tuple(x.shape))
-    group = mesh.group(names)
-    staged = x.device.type != "cpu"
     src = x.detach().contiguous()
-    if staged:
-        src = src.cpu()
-    out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype)
-    dist.all_gather(list(out.unbind(0)), src, group=group)
     moved = (n - 1) * src.numel() * src.element_size()
-    _count(op, moved, moved, staged)
-    if staged:
-        out = out.to(x.device)
-    return out
+    route = mesh.route(src)
+    _count(op, moved, moved, route == "gloo" and src.device.type != "cpu")
+    if route == "peer":
+        return mesh.peer.gather(src, mesh.kind(names), mesh.members(names))
+    if route == "nccl":
+        out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                          device=src.device)
+        if src.numel():
+            dist.all_gather_into_tensor(PEER.as_bytes(out),
+                                        PEER.as_bytes(src),
+                                        group=mesh._nccl[names])
+        return out
+    host = src.cpu()
+    out = torch.empty((n,) + tuple(host.shape), dtype=host.dtype)
+    dist.all_gather(list(out.unbind(0)), host, group=mesh.group(names))
+    return out.to(x.device)
 
 
 def _member_sum(parts: torch.Tensor) -> torch.Tensor:
@@ -291,37 +387,74 @@ def _all_to_all(x: torch.Tensor, mesh, names, n: int,
         moved = (n - 1) * (x.numel() // n) * x.element_size()
         _count(op, moved, moved, False)
         return x.detach().new_empty(x.shape)
-    group = mesh.group(names)
-    staged = x.device.type != "cpu"
     src = x.detach().contiguous()
-    if staged:
-        src = src.cpu()
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
     moved = (n - 1) * (src.numel() // n) * src.element_size()
-    _count(op, moved, moved, staged)
-    if staged:
-        out = out.to(x.device)
-    return out
+    route = mesh.route(src)
+    _count(op, moved, moved, route == "gloo" and src.device.type != "cpu")
+    if route == "peer":
+        return mesh.peer.all_to_all(src, mesh.kind(names),
+                                    mesh.members(names))
+    if route == "nccl":
+        out = torch.empty_like(src)
+        if src.numel():
+            dist.all_to_all_single(PEER.as_bytes(out), PEER.as_bytes(src),
+                                   group=mesh._nccl[names])
+        return out
+    host = src.cpu()
+    out = torch.empty_like(host)
+    dist.all_to_all_single(out, host, group=mesh.group(names))
+    return out.to(x.device)
+
+
+def _nccl_send_one(src: torch.Tensor, out: torch.Tensor, group, n: int,
+                   dst: Optional[int], srcs: Sequence[int]) -> None:
+    """One NCCL all-to-all over ``n`` members that moves ``src``'s bytes
+    to member ``dst`` only (None: to nobody) and fills ``out``'s bytes
+    from the members ``srcs`` in order: point-to-point traffic as one
+    collective, so no rank waits on a send that its peer posts later."""
+    sb = PEER.as_bytes(src) if dst is not None else src.new_empty(
+        0, dtype=torch.uint8)
+    nb = PEER.as_bytes(src).numel()
+    ob = PEER.as_bytes(out) if srcs else out.new_empty(0, dtype=torch.uint8)
+    dist.all_to_all_single(
+        ob, sb, output_split_sizes=[nb if j in srcs else 0
+                                    for j in range(n)],
+        input_split_sizes=[nb if j == dst else 0 for j in range(n)],
+        group=group)
 
 
 def gather_to_root(x: torch.Tensor, root: int = 0
                    ) -> Optional[List[torch.Tensor]]:
     """Every rank's ``x`` (one shape on every rank) on rank ``root`` of
     the bound mesh, in rank order, on the host; None on the other ranks.
-    One gloo ``gather`` over the process group: each rank's bytes cross
-    once (a checkpoint's save, where only the writer needs the whole)."""
+    Each rank's bytes cross once (a checkpoint's save, where only the
+    writer needs the whole): on gloo one ``gather`` over the process
+    group; on the card the pieces meet at the root's card, which copies
+    them to the host once."""
     mesh = current_mesh()
-    staged = x.device.type != "cpu"
-    src = x.detach().contiguous().cpu()
+    src = x.detach().contiguous()
     if mesh.size == 1:
-        return [src]
+        return [src.cpu()]
     nbytes = src.numel() * src.element_size()
-    out = ([torch.empty_like(src) for _ in range(mesh.size)]
-           if mesh.rank == root else None)
-    dist.gather(src, out, dst=root)
+    route = mesh.route(src)
     _count("gather", 0 if mesh.rank == root else nbytes,
-           (mesh.size - 1) * nbytes if mesh.rank == root else 0, staged)
+           (mesh.size - 1) * nbytes if mesh.rank == root else 0,
+           route == "gloo" and src.device.type != "cpu")
+    if route == "peer":
+        return mesh.peer.gather_to_root(src, root, len(mesh._kinds) - 1)
+    if route == "nccl":
+        out = (torch.empty((mesh.size,) + tuple(src.shape), dtype=src.dtype,
+                           device=src.device)
+               if mesh.rank == root else src.new_empty(0))
+        if nbytes:
+            _nccl_send_one(src, out, mesh._nccl_world, mesh.size, root,
+                           list(range(mesh.size)) if mesh.rank == root
+                           else [])
+        return list(out.cpu().unbind(0)) if mesh.rank == root else None
+    host = src.cpu()
+    out = ([torch.empty_like(host) for _ in range(mesh.size)]
+           if mesh.rank == root else None)
+    dist.gather(host, out, dst=root)
     return out
 
 
@@ -351,7 +484,9 @@ def ppermute(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
     """``jax.lax.ppermute`` along one mesh axis: ``perm`` lists (source,
     destination) indices along ``axis``; this rank sends ``x`` to its
     destination and returns what its source sent, or zeros when it has
-    none.  Point-to-point over the host (gloo ``isend``/``irecv``)."""
+    none.  Point to point: gloo ``isend``/``irecv`` on the host, a round
+    of the peer buffers, or one NCCL all-to-all with a single nonzero
+    split each way."""
     mesh = current_mesh()
     if mesh.shape[axis] == 1:
         return torch.zeros_like(x) if not any(s == d for s, d in perm) \
@@ -369,18 +504,30 @@ def ppermute(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
         nbytes = x.numel() * x.element_size()
         _count("ppermute", nbytes if dst else 0, nbytes if src else 0, False)
         return torch.zeros_like(x)
-    staged = x.device.type != "cpu"
     buf = x.detach().contiguous()
-    if staged:
-        buf = buf.cpu()
-    out = torch.zeros_like(buf)
+    nbytes = buf.numel() * buf.element_size()
+    route = mesh.route(buf)
+    _count("ppermute", nbytes if dst else 0, nbytes if src else 0,
+           route == "gloo" and buf.device.type != "cpu")
+    names = (axis,)
+    if route == "peer":
+        return mesh.peer.ppermute(buf, mesh.kind(names),
+                                  mesh.members(names),
+                                  dst[0] if dst else None,
+                                  src[0] if src else None)
+    if route == "nccl":
+        out = torch.zeros_like(buf)
+        if nbytes:
+            _nccl_send_one(buf, out, mesh._nccl[names], mesh.shape[axis],
+                           dst[0] if dst else None, src)
+        return out
+    host = buf.cpu()
+    out = torch.zeros_like(host)
     reqs = []
     if dst:
-        reqs.append(dist.isend(buf, peer(dst[0])))
+        reqs.append(dist.isend(host, peer(dst[0])))
     if src:
         reqs.append(dist.irecv(out, peer(src[0])))
     for r in reqs:
         r.wait()
-    nbytes = buf.numel() * buf.element_size()
-    _count("ppermute", nbytes if dst else 0, nbytes if src else 0, staged)
-    return out.to(x.device) if staged else out
+    return out.to(x.device)

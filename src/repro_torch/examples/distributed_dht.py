@@ -4,7 +4,8 @@ per-shard admission, lazy incremental resize and elastic host loss through
 the simulated multi-host soak (``launch/shard_soak``), then the DHT of
 ``core/sharded`` over real ranks — ``launch/mesh.run_spmd`` starts 4
 processes joined in one gloo group, each holding one shard, the routing
-done by all-to-all collectives — where the reference forces 8 fake
+done by all-to-all collectives (gloo on the CPU, the peer buffers or
+NCCL on the card) — where the reference forces 8 fake
 devices.
 
 Run: PYTHONPATH=src python -m repro_torch.examples.distributed_dht
@@ -44,7 +45,7 @@ def dht_rank(rank: int, device: str) -> dict:
     found = ret.cpu().numpy() == RET_TRUE
     return {"inserted": inserted, "overflow": int(over.sum() + over2.sum()),
             "lookups_ok": bool((found == want).all()),
-            "shard_keys": int(st.num_keys.sum())}
+            "shard_keys": int(st.num_keys.sum()), "transport": mesh.transport}
 
 
 def main(argv=None) -> int:
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
 
     # --- 4. the DHT over real ranks --------------------------------------
     outs = run_spmd(dht_rank, RANKS, (dev.type,), device=dev.type)
-    print(f"   mesh DHT over {RANKS} ranks (gloo): inserted "
+    print(f"   mesh DHT over {RANKS} ranks ({outs[0]['transport']}): inserted "
           f"{[o['inserted'] for o in outs]}, keys per shard "
           f"{[o['shard_keys'] for o in outs]}")
     if not all(o["lookups_ok"] and o["overflow"] == 0 for o in outs) or \

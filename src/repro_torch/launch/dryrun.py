@@ -584,6 +584,16 @@ def main(argv=None) -> int:
                     help="cfg override key=value (e.g. tp_impl=manual, "
                          "rules=dp)")
     ap.add_argument("--tag", default="", help="artifact name suffix")
+    ap.add_argument("--expect-fused", default="",
+                    help="comma-separated archs whose decode cells MUST "
+                         "take the fused manual-TP path with the K-token "
+                         "megastep loop and an ok probe strategy (exit 1 "
+                         "on any quiet gspmd fallback)")
+    ap.add_argument("--expect-fused-kernel", default="",
+                    help="comma-separated archs whose decode cells MUST "
+                         "run the one-dispatch fused decode kernel K1 "
+                         "(fused_kernel == 'ok'; exit 1 on any quiet "
+                         "two-dispatch fallback)")
     args = ap.parse_args(argv)
 
     overrides = {}
@@ -610,7 +620,53 @@ def main(argv=None) -> int:
     n_err = sum(r["status"] == "error" for r in results)
     print(f"\ndry-run: {n_ok} ok, {n_skip} skipped, {n_err} errors "
           f"of {len(results)} cells")
-    return 0 if n_err == 0 else 1
+    not_fused = expect_gate(results, args.expect_fused, _not_fused)
+    if not_fused:
+        print("expect-fused VIOLATED (quiet gspmd fallback): "
+              + ", ".join(not_fused))
+    no_kernel = expect_gate(results, args.expect_fused_kernel, _no_kernel)
+    if no_kernel:
+        print("expect-fused-kernel VIOLATED (quiet two-dispatch "
+              "fallback): " + ", ".join(no_kernel))
+    return 0 if n_err == 0 and not not_fused and not no_kernel else 1
+
+
+def _not_fused(r: dict) -> str:
+    """Why an ok decode cell is not on the fused manual-TP path ('' when
+    it is): the gspmd layout, a megastep that is not the K-token loop, or
+    a probe strategy that fell back to the plain oracle."""
+    if r.get("decode_tp") != "manual-fused":
+        return "decode_tp=" + str(r.get("decode_tp"))
+    if not str(r.get("megastep", "")).startswith("loop-"):
+        return "megastep=" + str(r.get("megastep"))
+    if not str(r.get("probe_strategy", ": ok")).endswith(": ok"):
+        return "probe_strategy=" + str(r.get("probe_strategy"))
+    return ""
+
+
+def _no_kernel(r: dict) -> str:
+    """Why an ok decode cell does not run K1 ('' when it does)."""
+    return ("" if r.get("fused_kernel") == "ok"
+            else "fused_kernel=" + str(r.get("fused_kernel")))
+
+
+def expect_gate(results, archs: str, why) -> list:
+    """The reference's CI gates: every ok decode cell of the archs named
+    in ``archs`` (comma-separated) must pass ``why`` (which returns the
+    fault, '' for none), and every named arch must have one ok decode
+    cell, or the gate would pass vacuously.  Returns the violations."""
+    expect = {a.strip() for a in archs.split(",") if a.strip()}
+    bad, seen = [], set()
+    for r in results:
+        if (r["arch"] not in expect or r["status"] != "ok"
+                or r.get("kind") != "decode"):
+            continue
+        seen.add(r["arch"])
+        fault = why(r)
+        if fault:
+            bad.append(f"{r['arch']}/{r['shape']}/{r['mesh']} ({fault})")
+    bad += [f"{a}/<no ok decode cell>" for a in sorted(expect - seen)]
+    return bad
 
 
 if __name__ == "__main__":

@@ -7,8 +7,13 @@ rank, each holding only its own shards (``dist/collectives.Mesh``).
 ``gloo`` at ``tcp://localhost:<free port>`` with a timeout, runs one
 function on every rank and returns what each rank returned.  A rank that
 raises, or waits on a collective longer than the timeout, fails the whole
-call.  Ranks on the card share device 0 (gloo carries their collectives
-through the host, see ``dist/collectives``).
+call.
+
+Ranks on the card are placed by ``card_of``: rank r on card r when the
+host has a card for every rank ("per card"; their meshes move collectives
+with NCCL), every rank on card 0 otherwise ("shared"; the peer buffers on
+that card, see ``dist/peer``).  The gloo group stays in both: it carries
+the launcher's barriers, host tensors and the small host exchanges.
 
 ``make_production_mesh`` returns the production shape as data only; it
 starts no process.
@@ -16,6 +21,7 @@ starts no process.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import socket
 import tempfile
@@ -36,13 +42,28 @@ def make_production_mesh(*, multi_pod: bool = False) -> C.AbstractMesh:
     return C.AbstractMesh(shape, axes)
 
 
+def card_of(rank: int, world: int, n_cards: int) -> int:
+    """The card of ``rank`` among ``world`` ranks on a host with
+    ``n_cards``: its own when every rank has one, else card 0."""
+    return rank if n_cards >= world else 0
+
+
+def placement(world: int, n_cards: int) -> str:
+    """"per card" or "shared" (``card_of``'s two cases)."""
+    return "per card" if n_cards >= world > 1 else "shared"
+
+
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
-              device=None) -> C.Mesh:
+              device=None, transport=None) -> C.Mesh:
     """The named mesh over the initialised process group, bound as this
-    process's mesh; this rank's tensors live on the card unless
-    ``device="cpu"``."""
+    process's mesh; this rank's tensors live on its card
+    (``torch.cuda.current_device()``, set by ``run_spmd``) unless
+    ``device="cpu"``.  ``transport`` follows from the placement
+    (``collectives.transport_for``); name it only to check one transport
+    against another."""
     from repro_torch.device import resolve_device
-    mesh = C.Mesh(shape, axis_names, resolve_device(device))
+    mesh = C.Mesh(shape, axis_names, resolve_device(device),
+                  transport=transport)
     C.set_mesh(mesh)
     return mesh
 
@@ -66,15 +87,21 @@ def _rank_main(rank: int, fn, world: int, port: int, out_dir: str,
     torch.set_num_threads(threads)
     args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     if device == "cuda":
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(card_of(rank, world,
+                                      torch.cuda.device_count()))
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     out = fn(rank, *args)
     torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
-    # no rank tears its connections down while another still uses them
-    dist.barrier()
+    # the meshes go (a peer workspace goes to torch's IPC limbo while a
+    # peer still maps it); no rank tears its connections down while
+    # another still uses them; then the workspaces are freed
     C.set_mesh(None)
+    gc.collect()
+    dist.barrier()
+    if device == "cuda":
+        torch.cuda.ipc_collect()
     dist.destroy_process_group()
 
 
@@ -82,7 +109,8 @@ def run_spmd(fn: Callable[..., Any], world: int, args=(), *,
              device: str = "cpu", timeout_s: float = DEFAULT_TIMEOUT_S,
              threads: int = 1) -> List[Any]:
     """Run ``fn(rank, *args)`` on ``world`` spawned ranks joined in one
-    gloo process group; returns the ranks' return values (saved with
+    gloo process group, on the card placed by ``card_of`` when ``device``
+    is "cuda"; returns the ranks' return values (saved with
     ``torch.save``, so tensors should be on the host) in rank order.
     ``fn`` must be importable by name (a module-level function).  Raises
     when a rank fails; a rank stuck in a collective fails after

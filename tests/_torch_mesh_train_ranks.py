@@ -170,17 +170,21 @@ def collectives_rank(rank, shape, axes):
 
 def card_collectives_rank(rank):
     """ppermute, reduce_scatter and psum of card tensors over a 2-rank
-    ``pod`` axis (staged through the host)."""
-    make_mesh((2,), ("pod",), "cuda")
+    ``pod`` axis, under the transport the placement gives (the peer
+    buffers when the ranks share a card, NCCL when each has one) and
+    under gloo named explicitly (staged through the host)."""
     x = torch.randn((4, 3), generator=torch.Generator().manual_seed(rank)
                     ).to("cuda")
-    C.reset_stats()
-    out = {"mine": x.cpu().numpy(),
-           "perm": C.ppermute(x, "pod", [(0, 1), (1, 0)]).cpu().numpy(),
-           "rs": C.reduce_scatter(x, "pod", dim=0).cpu().numpy(),
-           "psum": C.psum(x, "pod").cpu().numpy(),
-           "idx": C.axis_index("pod")}
-    out["staged"] = C.COLLECTIVE_STATS["staged"]
+    out = {"mine": x.cpu().numpy()}
+    for key, transport in (("placed", None), ("gloo", "gloo")):
+        mesh = make_mesh((2,), ("pod",), "cuda", transport=transport)
+        C.reset_stats()
+        out[key] = {
+            "perm": C.ppermute(x, "pod", [(0, 1), (1, 0)]).cpu().numpy(),
+            "rs": C.reduce_scatter(x, "pod", dim=0).cpu().numpy(),
+            "psum": C.psum(x, "pod").cpu().numpy(),
+            "idx": C.axis_index("pod"), "transport": mesh.transport,
+            "staged": C.COLLECTIVE_STATS["staged"]}
     return out
 
 

@@ -26,7 +26,8 @@ per module in a subprocess with 8 fake CPU devices, like
   atol = rtol = 1e-5 of its ``make_pipelined_forward``; the single-stage
   case and the bad partitions raise;
 - ``ppermute`` and ``reduce_scatter`` on gloo ranks, and on the card
-  (``gpu``-marked, staged through the host).
+  (``gpu``-marked: on the placement's transport, nothing staged, equal to
+  gloo's staged run).
 """
 import dataclasses
 import os
@@ -307,26 +308,38 @@ def test_ppermute_and_reduce_scatter_on_gloo():
 
 @pytest.mark.gpu
 def test_ppermute_staged_on_the_card():
-    """On a CUDA device: ``ppermute`` of card tensors, staged through the
-    host, delivers each rank's tensor to its destination."""
+    """On a CUDA device: ``ppermute`` of card tensors delivers each rank's
+    tensor to its destination on the transport the placement gives (the
+    peer buffers on one card, NCCL on two), nothing staged through the
+    host, with the bits of gloo's staged run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     outs = run_spmd(R.card_collectives_rank, 2, (), device="cuda")
-    np.testing.assert_array_equal(outs[0]["perm"], outs[1]["mine"])
-    np.testing.assert_array_equal(outs[1]["perm"], outs[0]["mine"])
-    assert all(o["staged"] >= 2 for o in outs)
+    want = "nccl" if torch.cuda.device_count() >= 2 else "peer"
+    np.testing.assert_array_equal(outs[0]["placed"]["perm"], outs[1]["mine"])
+    np.testing.assert_array_equal(outs[1]["placed"]["perm"], outs[0]["mine"])
+    for o in outs:
+        assert o["placed"]["transport"] == want
+        assert o["placed"]["staged"] == 0 and o["gloo"]["staged"] >= 2
+        np.testing.assert_array_equal(o["placed"]["perm"], o["gloo"]["perm"])
 
 
 @pytest.mark.gpu
 def test_reduce_scatter_staged_on_the_card():
-    """On a CUDA device: ``reduce_scatter`` of card tensors, staged through
-    the host, equals ``psum``'s chunk bit for bit."""
+    """On a CUDA device: ``reduce_scatter`` of card tensors equals
+    ``psum``'s chunk bit for bit on the placement's transport, nothing
+    staged, and both equal gloo's staged run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     outs = run_spmd(R.card_collectives_rank, 2, (), device="cuda")
     for o in outs:
-        np.testing.assert_array_equal(o["rs"], o["psum"][o["idx"] * 2:
-                                                         o["idx"] * 2 + 2])
+        got = o["placed"]
+        assert got["staged"] == 0
+        np.testing.assert_array_equal(got["rs"], got["psum"][got["idx"] * 2:
+                                                             got["idx"] * 2
+                                                             + 2])
+        np.testing.assert_array_equal(got["rs"], o["gloo"]["rs"])
+        np.testing.assert_array_equal(got["psum"], o["gloo"]["psum"])
 
 
 def test_port_data_matches_reference_shapes():

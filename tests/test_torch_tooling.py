@@ -176,6 +176,33 @@ def test_dryrun_cli_writes_a_cell(tmp_path):
         assert rl["chips"] == (512 if mesh == "2x16x16" else 256)
 
 
+FUSED = ["--set", "tp_impl=manual", "--set", "fused_kernel=1"]
+
+
+@pytest.mark.parametrize("arch,sets,gates,rc", [
+    # 32 KV heads over the 16-way model axis: the fused manual layout
+    # with K1 on every rank
+    ("codeqwen1.5-7b", FUSED, ("--expect-fused", "--expect-fused-kernel"),
+     0),
+    # gspmd by default: expected fused, falls back
+    ("granite-moe-1b-a400m", [], ("--expect-fused",), 1),
+    # 8 KV heads over 16: replicated KV keeps the two-dispatch path
+    ("granite-moe-1b-a400m", FUSED, ("--expect-fused-kernel",), 1),
+    # an expected arch with no ok decode cell fails, not passes vacuously
+    ("codeqwen1.5-7b", FUSED + ["--shape", "train_4k"],
+     ("--expect-fused",), 1),
+])
+def test_dryrun_expect_fused_gates(tmp_path, arch, sets, gates, rc):
+    """The reference's CI gates: exit 0 when every expected arch's decode
+    cells take the fused path, 1 on a quiet fallback or a vacuous gate."""
+    argv = ["--arch", arch, "--out", str(tmp_path)] + sets
+    if "--shape" not in argv:
+        argv += ["--shape", "decode_32k"]
+    for g in gates:
+        argv += [g, arch]
+    assert DR.main(argv) == rc
+
+
 EXAMPLES = {
     "quickstart": [],
     "serve_paged": [],
