@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core import encoding as E
 from repro_torch.core import hashing as H
-from repro_torch.device import host_bool, resolve_device
+from repro_torch.device import host_bool, host_int, resolve_device, to_card
 
 PROBE_CHUNK = 8  # cells fetched per probe round
 
@@ -76,7 +76,7 @@ def create(m: int, seed: int = 0, strategy: str = "linear", *,
         table=torch.full((m,), E.EMPTY, **i32),
         num_keys=torch.zeros((), **i32),
         num_tombs=torch.zeros((), **i32),
-        seed=torch.tensor(seed, **i32),
+        seed=to_card(seed, dev, torch.int32),
         meta=meta,
     )
 
@@ -300,7 +300,9 @@ def delete_batch(ht: HashTable, keys, active=None, *,
     win = found & leader
     trash = torch.full((1,), E.EMPTY, dtype=torch.int32, device=dev)
     table = torch.cat([ht.table, trash])
-    table[torch.where(win, slot.to(torch.int64), m)] = E.TOMBSTONE
+    # a Python number assigned to card memory is copied there first
+    table[torch.where(win, slot.to(torch.int64), m)] = to_card(
+        E.TOMBSTONE, dev, torch.int32)
     n = win.sum()
     ht2 = ht._replace(table=table[:m],
                       num_keys=(ht.num_keys - n).to(torch.int32),
@@ -349,7 +351,7 @@ def rebuild(ht: HashTable, new_m: int, new_seed: Optional[int] = None, *,
             strategy: str = "linear") -> HashTable:
     """Resize/rebuild (Section 4.3: triggered by ABORTs)."""
     keys_sorted, n_live = live_keys(ht)
-    seed = int(ht.seed) if new_seed is None else new_seed
+    seed = host_int(ht.seed) if new_seed is None else new_seed
     fresh = create(new_m, seed, strategy=strategy, device=ht.table.device)
     live = torch.arange(size(ht), device=ht.table.device) < n_live
     fresh, _ = insert_batch(fresh, keys_sorted, active=live,

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core import batched as BT
 from repro_torch.core import encoding as E
-from repro_torch.device import host_bool, host_numpy
+from repro_torch.device import host_bool, host_numpy, to_card
 
 # Hopscotch neighbourhood size: capped by the uint32 bitmap carrier.
 # Tables smaller than 32 cells use H = m.
@@ -176,7 +176,8 @@ class HopscotchStrategy(ProbeStrategy):
         win = found & leader
         slot = slot.to(torch.int64)
         table = _with_trash(ht.table, E.EMPTY)
-        table[torch.where(win, slot, m)] = E.EMPTY
+        table[torch.where(win, slot, m)] = to_card(E.EMPTY, dev,
+                                                   torch.int32)
         # winners hold distinct slots, so per home bucket each cleared bit
         # is distinct and a scatter-ADD of powers of two equals the OR
         d = torch.remainder(slot - hv, m).clamp(max=31)
@@ -295,7 +296,8 @@ class HopscotchStrategy(ProbeStrategy):
             new_d = torch.remainder(j - h_k, m).clamp(max=31)
             mword = (meta[h_k] & ~(one << old_d)) | (one << new_d)
             table[torch.where(any_mov, j, m)] = moved
-            table[torch.where(any_mov, isel, m)] = E.EMPTY
+            table[torch.where(any_mov, isel, m)] = to_card(
+                E.EMPTY, dev, torch.int32)
             meta[torch.where(any_mov, h_k, m)] = mword
             j = torch.where(any_mov, isel, j)
             dist_j = torch.remainder(j - home, m)

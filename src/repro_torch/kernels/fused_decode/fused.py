@@ -27,6 +27,7 @@ from __future__ import annotations
 from repro_torch.kernels.fused_decode.ref import fused_decode_plain
 from repro_torch.kernels.paged_attention.paged_attention import (
     check_decode_inputs, launch_decode)
+from repro_torch.obs.trace import span
 
 
 def fused_decode_kernel(q, k_pages, v_pages, block_table, positions, *,
@@ -39,17 +40,18 @@ def fused_decode_kernel(q, k_pages, v_pages, block_table, positions, *,
 
     Returns [B,QH,D] (q's dtype), or with ``partials=True`` the f32 triple
     (o [B,KH,G,D], m [B,KH,G], l [B,KH,G])."""
-    check_decode_inputs("fused_decode_kernel", q, k_pages, v_pages,
-                        block_table, positions, scales)
-    if q.device.type == "cpu":
-        return fused_decode_plain(q, k_pages, v_pages, block_table,
-                                  positions, scales=scales,
-                                  partials=partials)
-    out = launch_decode("fused_decode_kernel", q, k_pages, v_pages,
-                        block_table, positions, scales, from_positions=True,
-                        partials=partials)
-    fused_decode_kernel.launches += 1
-    return out
+    with span("kernels.k1"):
+        check_decode_inputs("fused_decode_kernel", q, k_pages, v_pages,
+                            block_table, positions, scales)
+        if q.device.type == "cpu":
+            return fused_decode_plain(q, k_pages, v_pages, block_table,
+                                      positions, scales=scales,
+                                      partials=partials)
+        out = launch_decode("fused_decode_kernel", q, k_pages, v_pages,
+                            block_table, positions, scales,
+                            from_positions=True, partials=partials)
+        fused_decode_kernel.launches += 1
+        return out
 
 
 fused_decode_kernel.launches = 0

@@ -40,6 +40,7 @@ remaining mamba layers) and needs at least one group.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
@@ -50,9 +51,10 @@ import torch
 from repro_torch import obs as OBS
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import batched as BT
-from repro_torch.device import host_int, host_numpy, resolve_device
-from repro_torch.kernels import stats as KS
+from repro_torch.device import host_int, host_numpy, resolve_device, to_card
 from repro_torch.models.registry import get_model
+from repro_torch.obs.trace import (record_spans, span, summarize,
+                                   write_chrome_trace)
 from repro_torch.serving import engine as EG
 from repro_torch.serving import page_table as PT
 from repro_torch.serving.sched import (Scheduler, churn_request,
@@ -109,7 +111,6 @@ class ContinuousBatcher:
         self.metrics = OBS.MetricsRegistry()
         self.metrics.source("fallback",
                             lambda: EG.fallback_report(cfg, rules))
-        self.metrics.source("kernel", lambda: dict(KS.KERNEL_STATS))
         self.metrics.source("probe", lambda: dict(PT.PROBE_STATS))
         self._ctr_prev: dict = {}
         logger.info("engine fallback report: %s",
@@ -124,7 +125,7 @@ class ContinuousBatcher:
         self.lane_stop = np.zeros(batch, np.int32)
 
     def _t(self, a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+        return to_card(a, self.device, dtype)
 
     # -- compat conveniences ---------------------------------------------
 
@@ -222,9 +223,10 @@ class ContinuousBatcher:
             self.state["active"] = self._t(active)
         if plan.grow_to is not None and "table" in self.state:
             # proactive Section 4.3 rebuild, between megasteps
-            self.state = EG.rebuild_page_table(self.state,
-                                               n_pages=plan.grow_to,
-                                               strategy=self.strategy)
+            with span("allocator.rebuild"):
+                self.state = EG.rebuild_page_table(self.state,
+                                                   n_pages=plan.grow_to,
+                                                   strategy=self.strategy)
             self._emit("rebuild", reason="grow", n_pages=plan.grow_to)
         if plan.admissions:
             seq_ids = host_numpy(self.state["seq_ids"]).copy()
@@ -294,11 +296,18 @@ class ContinuousBatcher:
         return d
 
     def step_round(self):
-        """One scheduled megastep round (K tokens per occupied lane)."""
+        """One scheduled megastep round (K tokens per occupied lane): the
+        span ``batcher.round``, which carries the clock of the round's
+        Tracer events (the clock after its K steps)."""
+        with span("batcher.round", clock=self.sched.clock + self.K):
+            return self._round()
+
+    def _round(self):
         if self.auto_refill:
             self._refill()
         with PT.probe_stats_scope() as ps:
-            forced, fmask = self._forcing()
+            with span("batcher.forcing"):
+                forced, fmask = self._forcing()
             p0 = self.pos.copy()
             toks, self.state = self.mega_fn(
                 self.params, self.state, self.tokens,
@@ -306,7 +315,8 @@ class ContinuousBatcher:
             self.tokens = toks[:, -1:]
             self.pos = host_numpy(self.state["pos"]).copy()
             self.sched.advance(self.K)
-            self._absorb(host_numpy(toks), p0, self.pos)
+            with span("batcher.absorb"):
+                self._absorb(host_numpy(toks), p0, self.pos)
             self._emit_decode(p0, self.pos)
             if self.verify and "table" in self.state:
                 self._check_block_table()
@@ -316,15 +326,18 @@ class ContinuousBatcher:
                 # pages, rebuild the block table, clear the flags; the
                 # refused suffix re-issues at the frozen positions
                 n_pages = BT.size(self.state["table"])
-                self.state = EG.rebuild_page_table(self.state,
-                                                   n_pages=n_pages * 2,
-                                                   strategy=self.strategy)
+                with span("allocator.rebuild"):
+                    self.state = EG.rebuild_page_table(
+                        self.state, n_pages=n_pages * 2,
+                        strategy=self.strategy)
                 self.sched.note_aborts(n_ab, grew_to=n_pages * 2)
                 self._emit("rebuild", reason="reactive",
                            n_pages=n_pages * 2)
             pool = EG.decode_headroom(self.state, strategy=self.strategy)
-            plan = self.sched.plan_round(self.pos, pool)
-            self._apply_plan(plan)
+            with span("scheduler.plan"):
+                plan = self.sched.plan_round(self.pos, pool)
+            with span("batcher.apply_plan"):
+                self._apply_plan(plan)
             probed = ps["keys_probed"]
         self.metrics.inc("keys_probed", probed)
         ctr = self._read_counters()
@@ -338,7 +351,7 @@ class ContinuousBatcher:
             if "table" in self.state:
                 t = self.state["table"]
                 n = BT.size(t)
-                live, tombs = int(t.num_keys), int(t.num_tombs)
+                live, tombs = host_int(t.num_keys), host_int(t.num_tombs)
                 health = {
                     "live": live, "tombs": tombs, "n_cells": n,
                     "free": n - live, "tomb_density": tombs / max(n, 1),
@@ -417,6 +430,10 @@ def main():
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--trace", default=None, metavar="PATH")
     ap.add_argument("--metrics-out", default=None, metavar="PREFIX")
+    ap.add_argument("--spans-out", default=None, metavar="PATH",
+                    help="record the serving path's layer spans over the "
+                         "rounds and write them as Chrome-trace JSON "
+                         "(Perfetto)")
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -464,20 +481,28 @@ def main():
             seed=args.seed, slo_fraction=args.slo_fraction,
             arrival_every=args.arrival_every))
 
-    for r in range(args.rounds):
-        srv.decode_round(args.steps_per_round)
-        st = srv.table_stats()
-        s = sched.stats
-        occ = ("" if st is None else
-               f" live_pages={int(st.live_pages)} "
-               f"tombs={int(st.tombstones)} "
-               f"occupancy={float(st.occupancy):.3f}")
-        print(f"[serve] round {r}: done={s.completed} "
-              f"preempted={s.preemptive_evictions} queue={len(sched.queue)} "
-              f"aborts={s.aborts} avoided={s.aborts_avoided} "
-              f"grows={s.pool_grows}{occ}")
-        if fixed and sched.drained:
-            break
+    with (record_spans() if args.spans_out
+          else contextlib.nullcontext()) as spans:
+        for r in range(args.rounds):
+            srv.decode_round(args.steps_per_round)
+            st = srv.table_stats()
+            s = sched.stats
+            occ = ("" if st is None else
+                   f" live_pages={int(st.live_pages)} "
+                   f"tombs={int(st.tombstones)} "
+                   f"occupancy={float(st.occupancy):.3f}")
+            print(f"[serve] round {r}: done={s.completed} "
+                  f"preempted={s.preemptive_evictions} "
+                  f"queue={len(sched.queue)} aborts={s.aborts} "
+                  f"avoided={s.aborts_avoided} grows={s.pool_grows}{occ}")
+            if fixed and sched.drained:
+                break
+    if args.spans_out:
+        write_chrome_trace(spans, args.spans_out)
+        top = sorted(summarize(spans).items(), key=lambda kv: -kv[1]["self_s"])
+        print(f"[serve] spans: {args.spans_out} ({len(spans)} spans; most "
+              "self time: " + ", ".join(f"{n} {d['self_s']:.3f} s"
+                                        for n, d in top[:5]) + ")")
 
     summary = sched.summary()
     print(f"[serve] summary ({sched.policy.name}, "

@@ -19,7 +19,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import to_card
 from repro_torch.models import nn
+from repro_torch.obs.trace import span
 
 DEFAULT_Q_CHUNK = 512
 NEG_INF = -1e30
@@ -29,10 +31,10 @@ NEG_INF = -1e30
 # RoPE.
 
 def _rope_freq(half: int, theta: float, device):
-    """theta ** (-i / half) for i < half, in f32."""
+    """theta ** (-i / half) for i < half, in f32.  Copying theta to the
+    card waits for it (a counted host sync)."""
     exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
-                     exps)
+    return torch.pow(to_card(theta, device, torch.float32), exps)
 
 
 def _rope_angles(positions, dims: int, theta: float):
@@ -69,7 +71,7 @@ def apply_mrope(x, positions3, sections: Tuple[int, ...], theta: float):
     # per-dim section id -> choose position stream
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))
+        to_card(sections, dev))
     pos_per_dim = positions3.float()[sec_id]             # [half,B,S]
     ang = torch.einsum("dbs,d->bsd", pos_per_dim, freq)  # [B,S,half]
     return _rotate(x, torch.sin(ang)[:, :, None, :],
@@ -149,7 +151,8 @@ def attn_out(p, o):
 
 def attn_qkv_decode(p, x):
     """Single-token QKV: x [B, d] -> q/k/v [B, H, hd]."""
-    return attn_qkv(p, x)
+    with span("model.qkv"):
+        return attn_qkv(p, x)
 
 
 def attn_out_decode(p, o):
@@ -216,9 +219,10 @@ def mlp_init(d: int, d_ff: int, dtype, generator, device):
 
 
 def mlp_apply(p, x):
-    g = F.silu(x @ p["wi_gate"])
-    u = x @ p["wi_up"]
-    return (g * u) @ p["wo"]
+    with span("model.mlp"):
+        g = F.silu(x @ p["wi_gate"])
+        u = x @ p["wi_up"]
+        return (g * u) @ p["wo"]
 
 
 def block_init(cfg, dtype, generator, device, d_ff: Optional[int] = None):

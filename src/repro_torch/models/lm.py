@@ -17,6 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import nn
+from repro_torch.obs.trace import span
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -111,11 +112,12 @@ def forward(cfg, params, tokens, *, positions=None, patch_embeds=None,
 
 
 def _logits(cfg, params, x):
-    if cfg.tie_embeddings:
-        logits = nn.embed_logits(params["embed"], x)
-    else:
-        logits = nn.dense(params["lm_head"], x)
-    return logits.float()
+    with span("model.lm_head"):
+        if cfg.tie_embeddings:
+            logits = nn.embed_logits(params["embed"], x)
+        else:
+            logits = nn.dense(params["lm_head"], x)
+        return logits.float()
 
 
 def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.obs.trace import span
 
 
 def moe_init(cfg, dtype, generator: torch.Generator, device):
@@ -73,44 +74,48 @@ def _moe_local(x, router, wig, wiu, wo, *, k: int, E: int, C: int,
     E_local = E if E_local is None else E_local
     T, d = x.shape
     dev = x.device
-    logits = x.float() @ router                           # [T,E] f32
-    probs = torch.softmax(logits, dim=-1)
-    gates, ids = _router_top_k(logits, probs, k, E)       # [T,k]
-    gates = gates / gates.sum(dim=-1, keepdim=True)
+    with span("model.moe.router"):
+        logits = x.float() @ router                       # [T,E] f32
+        probs = torch.softmax(logits, dim=-1)
+        gates, ids = _router_top_k(logits, probs, k, E)   # [T,k]
+        gates = gates / gates.sum(dim=-1, keepdim=True)
 
-    # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
-    me = probs.mean(dim=0)                                # [E]
-    ce = (ids.reshape(-1, 1) == torch.arange(E, device=dev)).sum(
-        dim=0).float() / (T * k)
-    aux = E * (me * ce).sum()
+        # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
+        me = probs.mean(dim=0)                            # [E]
+        ce = (ids.reshape(-1, 1) == torch.arange(E, device=dev)).sum(
+            dim=0).float() / (T * k)
+        aux = E * (me * ce).sum()
 
-    experts = e_offset + torch.arange(E_local, device=dev)
-    match = ids[None, :, :] == experts[:, None, None]     # [E_l,T,k]
-    sel = match.any(dim=-1)                               # [E_l,T]
-    pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1    # [E_l,T]
-    keep = sel & (pos < C)
-    slot = torch.where(keep, pos, C).to(torch.int64)      # C = trash slot
+    with span("model.moe.dispatch"):
+        experts = e_offset + torch.arange(E_local, device=dev)
+        match = ids[None, :, :] == experts[:, None, None]  # [E_l,T,k]
+        sel = match.any(dim=-1)                           # [E_l,T]
+        pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1    # [E_l,T]
+        keep = sel & (pos < C)
+        slot = torch.where(keep, pos, C).to(torch.int64)  # C = trash slot
 
-    # capacity slots: buf[e, c] is the token in local expert e's slot c
-    e_rows = torch.arange(E_local, device=dev)[:, None].expand(E_local, T)
-    buf = torch.zeros((E_local, C + 1, d), dtype=x.dtype, device=dev)
-    buf[e_rows, slot] = torch.where(keep[..., None], x[None], 0)
-    buf = buf[:, :C]
+        # capacity slots: buf[e, c] is the token in local expert e's slot c
+        e_rows = torch.arange(E_local, device=dev)[:, None].expand(-1, T)
+        buf = torch.zeros((E_local, C + 1, d), dtype=x.dtype, device=dev)
+        buf[e_rows, slot] = torch.where(keep[..., None], x[None], 0)
+        buf = buf[:, :C]
 
-    h = F.silu(torch.bmm(buf, wig)) * torch.bmm(buf, wiu)
-    out = torch.bmm(h, wo)                                # [E_l,C,d]
+    with span("model.moe.experts"):
+        h = F.silu(torch.bmm(buf, wig)) * torch.bmm(buf, wiu)
+        out = torch.bmm(h, wo)                            # [E_l,C,d]
 
     # combine: token t's j-th expert output at its slot, or 0 if that
     # expert is another rank's or the token was dropped there
-    li = ids - e_offset                                   # [T,k]
-    mine = (li >= 0) & (li < E_local)
-    lic = li.clamp(0, E_local - 1)
-    t_rows = torch.arange(T, device=dev)[:, None].expand(T, k)
-    kept = mine & keep[lic, t_rows]                       # [T,k]
-    contrib = out[lic, pos[lic, t_rows].clamp(0, C - 1)]  # [T,k,d]
-    contrib = torch.where(kept[..., None],
-                          contrib * gates[..., None], 0.0)    # f32
-    return contrib.sum(dim=1).to(x.dtype), aux
+    with span("model.moe.combine"):
+        li = ids - e_offset                               # [T,k]
+        mine = (li >= 0) & (li < E_local)
+        lic = li.clamp(0, E_local - 1)
+        t_rows = torch.arange(T, device=dev)[:, None].expand(T, k)
+        kept = mine & keep[lic, t_rows]                   # [T,k]
+        contrib = out[lic, pos[lic, t_rows].clamp(0, C - 1)]  # [T,k,d]
+        contrib = torch.where(kept[..., None],
+                              contrib * gates[..., None], 0.0)    # f32
+        return contrib.sum(dim=1).to(x.dtype), aux
 
 
 def moe_param_specs(cfg, rules):
@@ -143,6 +148,11 @@ def moe_apply(p, x, cfg, rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
       rank runs all experts on full weights (gathered here as GSPMD does
       outside the reference's region), and the outputs are gathered back.
     """
+    with span("model.moe"):
+        return _moe_apply(p, x, cfg, rules)
+
+
+def _moe_apply(p, x, cfg, rules):
     from repro_torch.dist import collectives as C
     from repro_torch.dist import ctx
     from repro_torch.dist.sharding import P, reshard

@@ -14,6 +14,8 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.obs.trace import span
+
 Params = Dict[str, Any]
 
 
@@ -49,10 +51,11 @@ def norm_init(d: int, dtype, device) -> Params:
 
 def rmsnorm(p, x, eps: float = 1e-6):
     """RMSNorm computed in f32, cast back to x's dtype."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    with span("model.rmsnorm"):
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps)
+        return (y * p["scale"].float()).to(x.dtype)
 
 
 def embed_init(vocab: int, d: int, dtype, generator, device) -> Params:

@@ -1,5 +1,6 @@
 """Unified telemetry: on-device counter plane, span tracing, metrics
-registry (``trace`` and ``registry`` are copies of the JAX package's)."""
+registry (``registry`` and ``trace``'s ``Tracer`` are copies of the JAX
+package's; ``trace``'s layer spans are the port's own)."""
 from repro_torch.obs.counters import (Counters, HOST_COUNTERS, delta,
                                       host_counters_scope, note_free,
                                       note_host, snapshot,

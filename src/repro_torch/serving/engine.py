@@ -84,7 +84,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import batched as BT
-from repro_torch.device import host_bool, resolve_device
+from repro_torch.device import (host_bool, host_nonzero, resolve_device,
+                                to_card)
 from repro_torch.dist import collectives as C
 from repro_torch.dist import ctx
 from repro_torch.dist import tp as TP
@@ -98,6 +99,7 @@ from repro_torch.models import nn
 from repro_torch.models import registry
 from repro_torch.models import ssm
 from repro_torch.obs import counters as OC
+from repro_torch.obs.trace import span
 from repro_torch.serving import page_table as PT
 from repro_torch.serving import paged
 
@@ -473,7 +475,7 @@ def rebuild_page_table(state: Dict[str, Any], *,
         raise ValueError(
             f"rebuild_page_table: {int(lost.sum())} live pages do not fit "
             f"in n_pages={new_m}")
-    idx = torch.nonzero(live).flatten()
+    idx = host_nonzero(live)
     src = old_slots[idx].to(torch.int64)
     dst = new_slots[idx].to(torch.int64)
     new_npr = new_m // n_shards
@@ -531,7 +533,7 @@ def reset_lanes(state: Dict[str, Any], slots) -> Dict[str, Any]:
     def local(leaf, dim):
         sl = lane_slice(leaf, dim, B)
         idx = [s - sl.start for s in slots if sl.start <= s < sl.stop]
-        return torch.as_tensor(idx, dtype=torch.int64, device=leaf.device)
+        return to_card(idx, leaf.device, torch.int64)
 
     if "ssm" in state:
         st = state["ssm"]
@@ -539,10 +541,12 @@ def reset_lanes(state: Dict[str, Any], slots) -> Dict[str, Any]:
                                   for t in st))
     if "ring_k" in state:
         idx = local(state["ring_k"], 1)
-        state["ring_k"][:, idx] = 0
-        state["ring_v"][:, idx] = 0
+        # a Python number assigned to card memory is copied there first
+        for name in ("ring_k", "ring_v"):
+            state[name][:, idx] = to_card(0, idx.device, state[name].dtype)
         ring_pos = state["ring_pos"].clone()
-        ring_pos[local(ring_pos, 0)] = -1
+        ring_pos[local(ring_pos, 0)] = to_card(-1, idx.device,
+                                               ring_pos.dtype)
         state["ring_pos"] = ring_pos
     return state
 
@@ -553,12 +557,14 @@ def reset_lanes(state: Dict[str, Any], slots) -> Dict[str, Any]:
 def _rope_single(cfg, x, positions, mrope=None):
     """x [B,H,hd] one token per seq at ``positions`` [B]; ``mrope``
     [3,B,1] the vlm family's M-RoPE streams."""
-    x4 = x[:, None]                                  # [B,1,H,hd]
-    if mrope is not None and cfg.mrope_sections:
-        out = L.apply_mrope(x4, mrope, cfg.mrope_sections, cfg.rope_theta)
-    else:
-        out = L.apply_rope(x4, positions[:, None], cfg.rope_theta)
-    return out[:, 0]
+    with span("model.rope"):
+        x4 = x[:, None]                              # [B,1,H,hd]
+        if mrope is not None and cfg.mrope_sections:
+            out = L.apply_mrope(x4, mrope, cfg.mrope_sections,
+                                cfg.rope_theta)
+        else:
+            out = L.apply_rope(x4, positions[:, None], cfg.rope_theta)
+        return out[:, 0]
 
 
 def _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused):
@@ -614,11 +620,12 @@ def _out_proj(cfg, ap, out, q_sharded):
     """attn out projection of full-head ``out`` [B, n_q, hd]: this rank's
     head rows of a row-parallel wo, psummed over ``model``, when the
     heads are sharded."""
-    if not q_sharded:
-        return L.attn_out_decode(ap, out)
-    hl = ap["wo"].shape[0]
-    lo = C.axis_index("model") * hl
-    return C.psum(L.attn_out_decode(ap, out[:, lo:lo + hl]), "model")
+    with span("model.out_proj"):
+        if not q_sharded:
+            return L.attn_out_decode(ap, out)
+        hl = ap["wo"].shape[0]
+        lo = C.axis_index("model") * hl
+        return C.psum(L.attn_out_decode(ap, out[:, lo:lo + hl]), "model")
 
 
 def _paged_attn_shard(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
@@ -1073,8 +1080,9 @@ def make_serve_megastep(cfg, *, S_max: int, K: int, rules=None,
                 return _serve_step_impl(cfg, params, st, tok, pos, mrope,
                                         S_max=S_max, page_size=page_size,
                                         rules=rules)
-        return _mega_scan(cfg, K, token_step, state, tokens, stop_len,
-                          forced, forced_mask)
+        with span("model.megastep"):
+            return _mega_scan(cfg, K, token_step, state, tokens, stop_len,
+                              forced, forced_mask)
 
     megastep.megastep = f"loop-K{K}"
     return megastep
@@ -1094,20 +1102,22 @@ def _mega_scan(cfg, K: int, token_step, state, tokens, stop_len,
     B = tokens.shape[0]
     out = []
     for k in range(K):
-        pos = st["pos"]
-        mrope = (pos[None, :, None].expand(3, B, 1)
-                 if cfg.family == "vlm" else None)
-        logits, st2 = token_step(st, tok, pos, mrope)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        if forced is not None:
-            nxt = torch.where(forced_mask[:, k, None],
-                              forced[:, k, None].to(torch.int32), nxt)
-        tok2 = torch.where(st2["aborted"][:, None], tok, nxt)
-        if stop_len is not None:
-            st2 = dict(st2)
-            st2["active"] = st2["active"] & (st2["pos"] < stop_len)
-        st, tok = st2, tok2
-        out.append(tok2[:, 0])
+        with span("model.token_step"):
+            pos = st["pos"]
+            mrope = (pos[None, :, None].expand(3, B, 1)
+                     if cfg.family == "vlm" else None)
+            logits, st2 = token_step(st, tok, pos, mrope)
+            with span("model.sample"):
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                if forced is not None:
+                    nxt = torch.where(forced_mask[:, k, None],
+                                      forced[:, k, None].to(torch.int32), nxt)
+                tok2 = torch.where(st2["aborted"][:, None], tok, nxt)
+                if stop_len is not None:
+                    st2 = dict(st2)
+                    st2["active"] = st2["active"] & (st2["pos"] < stop_len)
+            st, tok = st2, tok2
+            out.append(tok2[:, 0])
     return torch.stack(out, dim=1), st
 
 
@@ -1166,17 +1176,18 @@ def _attention_layers(cfg, params, state, x, positions, mrope, attn, ops):
     n_ring = 0
     n_paged = 0
     for i in range(cfg.num_layers):
-        lpp = nn.layer_slice(params["layers"], i)
-        h = nn.rmsnorm(lpp["ln1"], x)
-        if lm.layer_window(cfg, i):
-            x = x + ops.ring(h, lpp["attn"], state["ring_k"][n_ring],
-                             state["ring_v"][n_ring], state["ring_pos"],
-                             positions)
-            n_ring += 1
-        else:
-            x = x + attn(h, lpp["attn"], n_paged, mrope)
-            n_paged += 1
-        x = x + ops.ffn(lpp, nn.rmsnorm(lpp["ln2"], x))
+        with span("model.layer"):
+            lpp = nn.layer_slice(params["layers"], i)
+            h = nn.rmsnorm(lpp["ln1"], x)
+            if lm.layer_window(cfg, i):
+                x = x + ops.ring(h, lpp["attn"], state["ring_k"][n_ring],
+                                 state["ring_v"][n_ring], state["ring_pos"],
+                                 positions)
+                n_ring += 1
+            else:
+                x = x + attn(h, lpp["attn"], n_paged, mrope)
+                n_paged += 1
+            x = x + ops.ffn(lpp, nn.rmsnorm(lpp["ln2"], x))
     if not n_ring:
         return x, None
     # every lane's slot takes this step's position, after all layers
@@ -1214,11 +1225,12 @@ def _encdec_layers(cfg, params, state, x, attn, ops):
     """seamless's decoder: paged causal self attention, cross attention
     over the encoder's K/V, SwiGLU MLP."""
     for i in range(cfg.num_layers):
-        lpp = nn.layer_slice(params["decoder"], i)
-        x = x + attn(nn.rmsnorm(lpp["ln1"], x), lpp["attn"], i, None)
-        x = x + ops.cross(lpp["cross"], nn.rmsnorm(lpp["ln_cross"], x),
-                          state["cross_k"][i], state["cross_v"][i])
-        x = x + ops.mlp(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
+        with span("model.layer"):
+            lpp = nn.layer_slice(params["decoder"], i)
+            x = x + attn(nn.rmsnorm(lpp["ln1"], x), lpp["attn"], i, None)
+            x = x + ops.cross(lpp["cross"], nn.rmsnorm(lpp["ln_cross"], x),
+                              state["cross_k"][i], state["cross_v"][i])
+            x = x + ops.mlp(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
     return x
 
 

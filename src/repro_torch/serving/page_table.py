@@ -21,7 +21,11 @@ through every operation.  Every state and result here equals the JAX
 facade's bit for bit.  The
 facade is functional: table and block table are returned, never written
 in place.  ``PROBE_STATS`` counts every call (the port is eager; the JAX
-package counts only its eager calls, not those inside a jitted megastep).
+package counts only its eager calls, not those inside a jitted megastep);
+``PROBED_TOTAL`` counts the same keys but is never reset, so that a span
+(``obs/trace``) can take its difference across any interval.  The
+allocation, the frees and the headroom read are the spans
+``allocator.alloc_step``, ``allocator.free`` and ``allocator.headroom``.
 """
 from __future__ import annotations
 
@@ -36,13 +40,15 @@ import torch
 from repro_torch.core import batched as BT
 from repro_torch.core import encoding as E
 from repro_torch.core.probe_strategies import get_strategy
-from repro_torch.device import host_int
+from repro_torch.device import host_int, host_numpy
+from repro_torch.obs.trace import span
 
 logger = logging.getLogger(__name__)
 
 MAX_LOGICAL_PAGES = 2048  # 2^11 -> 500k tokens at page_size 256
 
 PROBE_STATS = {"keys_probed": 0}
+PROBED_TOTAL = {"keys_probed": 0}
 
 
 def probe_stats_reset() -> None:
@@ -64,6 +70,7 @@ def probe_stats_scope() -> Iterator[dict]:
 
 def _note_probes(n: int) -> None:
     PROBE_STATS["keys_probed"] += int(n)
+    PROBED_TOTAL["keys_probed"] += int(n)
 
 
 def page_key(seq_ids, logical_pages) -> torch.Tensor:
@@ -138,7 +145,7 @@ class PageTable:
         dev = table.table.device
         live = torch.arange(keys.shape[0], device=dev) < n_live
         fresh = BT.create(n_pages,
-                          seed=(int(table.seed) + 1 if seed is None
+                          seed=(host_int(table.seed) + 1 if seed is None
                                 else seed),
                           strategy=self.strategy, device=dev)
         fresh, _ = BT.insert_batch(fresh, keys, active=live,
@@ -182,35 +189,36 @@ class PageTable:
         When no lane crosses a page boundary the insert and the lookup
         are skipped: both are identities on such a batch, and skipping
         them saves their host syncs."""
-        positions = torch.as_tensor(positions, device=table.table.device)
-        B = positions.shape[0]
-        act = _bool(active, positions.shape, positions.device)
-        page_idx = (positions // page_size).to(torch.int64)
-        need_new = ((positions % page_size) == 0) & act
-        n_new = host_int(need_new.sum())
-        if n_new:
-            keys = page_key(seq_ids, page_idx)
-            table, ret = BT.insert_batch(table, keys, active=need_new,
-                                         strategy=self.strategy)
-            aborted = need_new & (ret == 2)
-            found, slots = BT.find_batch(table, keys, active=need_new,
-                                         strategy=self.strategy)
-            fresh_slot = torch.where(found & need_new, slots, -1)
-        else:
-            aborted = torch.zeros_like(need_new)
-            fresh_slot = torch.full_like(block_table[:, 0], -1)
-        _note_probes(2 * n_new)
+        with span("allocator.alloc_step"):
+            positions = torch.as_tensor(positions, device=table.table.device)
+            B = positions.shape[0]
+            act = _bool(active, positions.shape, positions.device)
+            page_idx = (positions // page_size).to(torch.int64)
+            need_new = ((positions % page_size) == 0) & act
+            n_new = host_int(need_new.sum())
+            if n_new:
+                keys = page_key(seq_ids, page_idx)
+                table, ret = BT.insert_batch(table, keys, active=need_new,
+                                             strategy=self.strategy)
+                aborted = need_new & (ret == 2)
+                found, slots = BT.find_batch(table, keys, active=need_new,
+                                             strategy=self.strategy)
+                fresh_slot = torch.where(found & need_new, slots, -1)
+            else:
+                aborted = torch.zeros_like(need_new)
+                fresh_slot = torch.full_like(block_table[:, 0], -1)
+            _note_probes(2 * n_new)
 
-        max_pages = block_table.shape[1]
-        rows = torch.arange(B, device=positions.device)
-        cached = block_table[rows, page_idx.clamp(0, max_pages - 1)]
-        write_slot = torch.where(need_new, fresh_slot,
-                                 torch.where(act, cached, -1))
-        # scatter the crossings; other lanes write the trash column
-        bt = torch.cat([block_table, block_table[:, :1]], dim=1)
-        bt[rows, torch.where(need_new, page_idx, max_pages)] = fresh_slot
-        return AllocStep(table, write_slot.to(torch.int32),
-                         aborted), bt[:, :max_pages].contiguous()
+            max_pages = block_table.shape[1]
+            rows = torch.arange(B, device=positions.device)
+            cached = block_table[rows, page_idx.clamp(0, max_pages - 1)]
+            write_slot = torch.where(need_new, fresh_slot,
+                                     torch.where(act, cached, -1))
+            # scatter the crossings; other lanes write the trash column
+            bt = torch.cat([block_table, block_table[:, :1]], dim=1)
+            bt[rows, torch.where(need_new, page_idx, max_pages)] = fresh_slot
+            return AllocStep(table, write_slot.to(torch.int32),
+                             aborted), bt[:, :max_pages].contiguous()
 
     def prefill_alloc(self, table: BT.HashTable, seq_ids, lengths, *,
                       page_size: int, max_pages: int
@@ -238,18 +246,19 @@ class PageTable:
         """Evict sequences: delete all their page keys.  Linear and
         robinhood leave TOMBSTONEs that later allocations reuse (no
         rebuild); hopscotch returns the cells to EMPTY outright."""
-        dev = table.table.device
-        seq_ids = torch.as_tensor(seq_ids, device=dev)
-        positions = torch.as_tensor(positions, device=dev)
-        B = seq_ids.shape[0]
-        logical = torch.arange(max_pages, dtype=torch.int64, device=dev)
-        keys = page_key(seq_ids[:, None], logical[None, :]).reshape(-1)
-        act = ((logical[None, :] <= positions[:, None] // page_size)
-               & _bool(active, (B,), dev)[:, None]).reshape(-1)
-        table, _ = BT.delete_batch(table, keys, active=act,
-                                   strategy=self.strategy)
-        _note_probes(host_int(act.sum()))
-        return table
+        with span("allocator.free"):
+            dev = table.table.device
+            seq_ids = torch.as_tensor(seq_ids, device=dev)
+            positions = torch.as_tensor(positions, device=dev)
+            B = seq_ids.shape[0]
+            logical = torch.arange(max_pages, dtype=torch.int64, device=dev)
+            keys = page_key(seq_ids[:, None], logical[None, :]).reshape(-1)
+            act = ((logical[None, :] <= positions[:, None] // page_size)
+                   & _bool(active, (B,), dev)[:, None]).reshape(-1)
+            table, _ = BT.delete_batch(table, keys, active=act,
+                                       strategy=self.strategy)
+            _note_probes(host_int(act.sum()))
+            return table
 
     # -- reads ----------------------------------------------------------
 
@@ -352,27 +361,29 @@ class PageTable:
     def probe_p99(table: BT.HashTable, q: float = 99.0) -> float:
         """Host-side probe-length percentile of the current pool: each live
         key's displacement from its hash slot (mod table size)."""
-        tab = table.table.cpu().numpy()
+        tab = host_numpy(table.table)
         occ = (tab != E.EMPTY) & (tab != E.TOMBSTONE)
         idx = np.nonzero(occ)[0]
         if not idx.size:
             return 0.0
-        ht = table._replace(seed=table.seed.cpu(), table=table.table.cpu())
+        ht = table._replace(seed=torch.from_numpy(host_numpy(table.seed)),
+                            table=torch.from_numpy(tab))
         hv = BT._hash(ht, torch.from_numpy(tab[idx] >> 2)).numpy()
         d = (idx - hv) % tab.shape[0]
         return float(np.percentile(d, q))
 
     def headroom(self, table: BT.HashTable) -> Headroom:
         """Synchronous (host) headroom read."""
-        m = BT.size(table)
-        live = host_int(table.num_keys)
-        tombs = host_int(table.num_tombs)
-        return Headroom(n_pages=m, live_pages=live, tombstones=tombs,
-                        free_cells=m - live,
-                        live_fraction=live / max(m, 1),
-                        occupancy=(live + tombs) / max(m, 1),
-                        strategy=self.strategy,
-                        slack=self.forecast_slack(m))
+        with span("allocator.headroom"):
+            m = BT.size(table)
+            live = host_int(table.num_keys)
+            tombs = host_int(table.num_tombs)
+            return Headroom(n_pages=m, live_pages=live, tombstones=tombs,
+                            free_cells=m - live,
+                            live_fraction=live / max(m, 1),
+                            occupancy=(live + tombs) / max(m, 1),
+                            strategy=self.strategy,
+                            slack=self.forecast_slack(m))
 
 
 @functools.lru_cache(maxsize=None)

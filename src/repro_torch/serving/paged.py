@@ -22,8 +22,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.device import SYNC_STATS
+from repro_torch.device import host_nonzero
 from repro_torch.dist import collectives as C
+from repro_torch.obs.trace import span
 
 NEG_INF = -1e30
 
@@ -111,13 +112,13 @@ def write_plan(write_slot, positions, chip_idx: int, npr: int,
     """The lanes with ``write_slot >= 0`` on this chip.  Selecting them
     sizes a tensor from device data: one host sync, so the engine builds
     the plan once per token and every layer reuses it."""
-    ws = write_slot.to(torch.int64)
-    mine = (ws >= 0) & (torch.div(ws, npr, rounding_mode="floor")
-                        == chip_idx)
-    SYNC_STATS["host_syncs"] += 1
-    lanes = torch.nonzero(mine).flatten()
-    return WritePlan(lanes=lanes, rows=ws[lanes] % npr,
-                     offs=positions.to(torch.int64)[lanes] % page_size)
+    with span("model.kv_write_plan"):
+        ws = write_slot.to(torch.int64)
+        mine = (ws >= 0) & (torch.div(ws, npr, rounding_mode="floor")
+                            == chip_idx)
+        lanes = host_nonzero(mine)
+        return WritePlan(lanes=lanes, rows=ws[lanes] % npr,
+                         offs=positions.to(torch.int64)[lanes] % page_size)
 
 
 def write_token_kv(pool_k_l, pool_v_l, k_new, v_new, write_slot, positions,
@@ -132,21 +133,22 @@ def write_token_kv(pool_k_l, pool_v_l, k_new, v_new, write_slot, positions,
     into the last page.  ``plan`` is ``write_plan(write_slot, ...)``
     when the caller has it.  Returns the pools (and scales) for symmetry
     with the reference."""
-    if plan is None:
-        plan = write_plan(write_slot, positions, chip_idx, npr, page_size)
-    lanes, rows, offs = plan
-    if pool_k_l.dtype == torch.int8:
-        k_q, k_s = quantize_kv(k_new)
-        v_q, v_s = quantize_kv(v_new)
-        k_scale_l, v_scale_l = scales
-        pool_k_l[rows, offs] = k_q[lanes]
-        pool_v_l[rows, offs] = v_q[lanes]
-        k_scale_l[rows, offs] = k_s[lanes]
-        v_scale_l[rows, offs] = v_s[lanes]
-        return pool_k_l, pool_v_l, (k_scale_l, v_scale_l)
-    pool_k_l[rows, offs] = k_new[lanes].to(pool_k_l.dtype)
-    pool_v_l[rows, offs] = v_new[lanes].to(pool_v_l.dtype)
-    return pool_k_l, pool_v_l, None
+    with span("model.kv_write"):
+        if plan is None:
+            plan = write_plan(write_slot, positions, chip_idx, npr, page_size)
+        lanes, rows, offs = plan
+        if pool_k_l.dtype == torch.int8:
+            k_q, k_s = quantize_kv(k_new)
+            v_q, v_s = quantize_kv(v_new)
+            k_scale_l, v_scale_l = scales
+            pool_k_l[rows, offs] = k_q[lanes]
+            pool_v_l[rows, offs] = v_q[lanes]
+            k_scale_l[rows, offs] = k_s[lanes]
+            v_scale_l[rows, offs] = v_s[lanes]
+            return pool_k_l, pool_v_l, (k_scale_l, v_scale_l)
+        pool_k_l[rows, offs] = k_new[lanes].to(pool_k_l.dtype)
+        pool_v_l[rows, offs] = v_new[lanes].to(pool_v_l.dtype)
+        return pool_k_l, pool_v_l, None
 
 
 def attend_local(q_all, pool_k_l, pool_v_l, lp: LocalPages, positions,
