@@ -21,8 +21,6 @@ numpy inputs.
   devices (a subprocess), bit for bit.
 """
 import os
-import subprocess
-import sys
 import tempfile
 
 import jax
@@ -31,6 +29,7 @@ import numpy as np
 import pytest
 
 import _torch_mesh_ranks as R
+from _subproc import run_python
 from repro.configs import get_smoke_config as j_smoke
 from repro.models import layers as JL
 from repro.models import moe as JMOE
@@ -38,7 +37,7 @@ from repro.models.registry import get_model as j_get_model
 from repro.serving import engine as JEG
 from repro_torch.launch.mesh import run_spmd
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 60     # the DHT's reference subprocess; the test took 13 s
 B, T, K = 2, 10, 8
 # float32: the merge of the ranks' attention partials sums the o partial
 # in bf16, as the reference's does, so a mesh is not within 1e-4 of one
@@ -241,14 +240,8 @@ def test_mesh_dht_matches_reference():
         np.savez(inp, m_global=m_global, capacity=capacity, n=len(batches),
                  **{f"ops{i}": o for i, (o, _) in enumerate(batches)},
                  **{f"keys{i}": k for i, (_, k) in enumerate(batches)})
-        env = dict(os.environ)
-        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                            + " --xla_force_host_platform_device_count=8")
-        env["PYTHONPATH"] = os.path.join(REPO, "src")
-        env["JAX_PLATFORMS"] = "cpu"
-        run = subprocess.run([sys.executable, "-c", DHT_SCRIPT, inp, outp],
-                             env=env, capture_output=True, text=True,
-                             timeout=600)
+        run = run_python(["-c", DHT_SCRIPT, inp, outp], devices=8,
+                         timeout=TIMEOUT_S)
         assert run.returncode == 0, run.stderr
         ref = dict(np.load(outp))
     outs = run_spmd(R.dht_rank, 8, (m_global, capacity, batches))

@@ -30,10 +30,7 @@ per module in a subprocess with 8 fake CPU devices, like
   gloo's staged run).
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +39,7 @@ import pytest
 import torch
 
 import _torch_mesh_train_ranks as R
+from _subproc import run_python
 from repro.configs import get_smoke_config as j_smoke
 from repro.dist import compression as JCOMP
 from repro.training import checkpoint as JCKPT
@@ -53,7 +51,7 @@ from repro_torch.launch.mesh import run_spmd
 from repro_torch.training import data as TD
 from repro_torch.training import train_step as TS
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 150    # the `ref` fixture's subprocess, which took 45 s
 # the manual-pod step in float32: the ranks' pmean over data and the
 # compressed sum over pod add the same numbers as the reference's
 # all-reduces, so loss, params and residuals agree to float32 rounding
@@ -107,12 +105,8 @@ with open(sys.argv[1], "wb") as fh:
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ref") / "ref.pkl")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_force_host_platform_device_count=8")
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    out = subprocess.run([sys.executable, "-c", REF_SCRIPT, path], env=env,
-                         capture_output=True, text=True, timeout=600)
+    out = run_python(["-c", REF_SCRIPT, path], devices=8,
+                     timeout=TIMEOUT_S)
     assert out.returncode == 0, out.stderr[-4000:]
     with open(path, "rb") as f:
         return pickle.load(f)

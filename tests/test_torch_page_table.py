@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref
 from repro.serving import page_table as JPT
 from repro_torch.serving import page_table as TPT
 
@@ -299,6 +300,7 @@ def test_strategy_churn_and_rebuild_rows_match_reference(strategy):
     from repro.obs import counters as JOC
     from repro_torch.obs import counters as TOC
     jpt, tpt = JPT.for_strategy(strategy), TPT.for_strategy(strategy)
+    jitted = _jax_ref.page_table(strategy)
     n_pages, B, ps, maxP = 64, 4, 2, 12
     j = jpt.create_table(n_pages, seed=1)
     t = tpt.create_table(n_pages, seed=1, device="cpu")
@@ -309,7 +311,7 @@ def test_strategy_churn_and_rebuild_rows_match_reference(strategy):
     pos = np.zeros(B, np.int32)
     rng = np.random.default_rng(3)
     for round_ in range(20):
-        (j, wj, _), bj = jpt.alloc_step_incremental(
+        (j, wj, _), bj = jitted.alloc_step_incremental(
             j, jnp.asarray(seq), jnp.asarray(pos), bj, page_size=ps)
         (t, wt, _), bt = tpt.alloc_step_incremental(
             t, torch.from_numpy(seq), torch.from_numpy(pos), bt,
@@ -322,9 +324,9 @@ def test_strategy_churn_and_rebuild_rows_match_reference(strategy):
         if round_ % 5 == 4:
             mask = np.zeros(B, bool)
             mask[int(rng.integers(B))] = True
-            j2 = jpt.free_sequences(j, jnp.asarray(seq), jnp.asarray(pos),
-                                    page_size=ps, max_pages=maxP,
-                                    active=jnp.asarray(mask))
+            j2 = jitted.free_sequences(j, jnp.asarray(seq), jnp.asarray(pos),
+                                       page_size=ps, max_pages=maxP,
+                                       active=jnp.asarray(mask))
             t2 = tpt.free_sequences(t, torch.from_numpy(seq),
                                     torch.from_numpy(pos), page_size=ps,
                                     max_pages=maxP,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref
 from repro.core import batched as JBT
 from repro.core.baselines import gao_noreuse as JGN
 from repro.core.probe_strategies import get_strategy as j_get_strategy
@@ -116,12 +117,12 @@ def test_strategy_bitwise_against_reference(strategy, m):
     t = TBT.create(m, seed=3, strategy=strategy, device="cpu")
     assert_same(j, t)
     for _ in range(10):
-        # few distinct batch sizes: each compiles the eager JAX loops once
+        # few distinct batch sizes: each compiles the reference once
         B = int(rng.choice([8, 16, 32]))
         ops = rng.integers(0, 3, size=B).astype(np.int32)
         keys = rng.integers(0, 3 * m, size=B).astype(np.uint32)
-        j, rj = JBT.apply_batch(j, jnp.asarray(ops), jnp.asarray(keys),
-                                strategy=strategy)
+        j, rj = _jax_ref.apply_batch(j, jnp.asarray(ops), jnp.asarray(keys),
+                                     strategy=strategy)
         t, rt = TBT.apply_batch(t, torch.from_numpy(ops), tkeys(keys),
                                 strategy=strategy)
         assert_same(j, t)
@@ -333,7 +334,7 @@ def test_hopscotch_displacement_churn():
     """m > H: under heavy churn the table stays tombstone-free, counters
     exact, every live key found, the bitmap invariant holds both ways, and
     every batch is the reference's."""
-    impl, jimpl = get_strategy("hopscotch"), j_get_strategy("hopscotch")
+    impl, jimpl = get_strategy("hopscotch"), _jax_ref.strategy("hopscotch")
     m = 64
     assert m > H_NEIGHBORHOOD
     rng = np.random.default_rng(11)
@@ -380,7 +381,7 @@ def test_facade_alloc_free_cycle(strategy):
     for _ in range(psize * maxP):
         st, bt = pt.alloc_step_incremental(table, seq, pos, bt,
                                            page_size=psize)
-        jst, jbt = jpt.alloc_step_incremental(
+        jst, jbt = _jax_ref.page_table(strategy).alloc_step_incremental(
             jt, jnp.asarray(seq.numpy()), jnp.asarray(pos.numpy()), jbt,
             page_size=psize)
         table, jt = st.table, jst.table

@@ -21,9 +21,6 @@ package where it has a counterpart.
 """
 import dataclasses
 import json
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -31,6 +28,7 @@ import pytest
 from jax.sharding import AbstractMesh
 
 import _torch_mesh_train_ranks as R
+from _subproc import run_python
 from repro.configs import ARCH_IDS, get_config as j_config
 from repro.configs.base import SHAPES as J_SHAPES
 from repro.dist import sharding as JSH
@@ -46,7 +44,10 @@ from repro_torch.launch import flops_model as FM
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import run_spmd
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# about three times the subprocesses' times on an 8-core host under six
+# test workers: the dry-run CLI's 20 s, the slowest example's 22 s
+DRYRUN_TIMEOUT_S = 60
+EXAMPLE_TIMEOUT_S = 90
 
 
 @pytest.mark.parametrize("arch", sorted(ARCH_IDS))
@@ -148,21 +149,12 @@ def test_train_collective_count_equals_a_real_step():
         assert o["prefill"][0] == o["prefill"][1], o["prefill"]
 
 
-def _env():
-    """The subprocess's environment: the port on the path, one intra-op
-    thread (the test workers share the cores; a default pool of one
-    thread a core makes a subprocess crawl under them)."""
-    return dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-                OMP_NUM_THREADS="1")
-
-
 def test_dryrun_cli_writes_a_cell(tmp_path):
-    env = _env()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+    out = run_python(
+        ["-m", "repro_torch.launch.dryrun", "--arch",
          "granite-moe-1b-a400m", "--shape", "decode_32k", "--mesh", "both",
-         "--set", "tp_impl=manual", "--out", str(tmp_path)], env=env,
-        capture_output=True, text=True, timeout=300)
+         "--set", "tp_impl=manual", "--out", str(tmp_path)],
+        timeout=DRYRUN_TIMEOUT_S)
     assert out.returncode == 0, out.stdout + out.stderr
     for mesh in ("16x16", "2x16x16"):
         with open(tmp_path / f"granite-moe-1b-a400m__decode_32k__{mesh}"
@@ -213,10 +205,7 @@ EXAMPLES = {
 
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_example_runs_on_cpu(name):
-    env = _env()
-    out = subprocess.run(
-        [sys.executable, "-m", f"repro_torch.examples.{name}", "--device",
-         "cpu"] + EXAMPLES[name], env=env, capture_output=True, text=True,
-        timeout=300)
+    out = run_python(["-m", f"repro_torch.examples.{name}", "--device",
+                      "cpu"] + EXAMPLES[name], timeout=EXAMPLE_TIMEOUT_S)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert f"{name} OK" in out.stdout or "quickstart OK" in out.stdout
