@@ -40,7 +40,7 @@ def gap_stats(gaps) -> dict:
 def control(cell, seeds, seconds, device):
     from perfbench import check as CK
     from perfbench import harness
-    from perfbench.reference import decoder as RD
+    from perfbench.reference import served as RS
     import torch
     for seed in seeds:
         captured = {}
@@ -58,7 +58,7 @@ def control(cell, seeds, seconds, device):
         served = captured["served"]
         idx = CK.sample(served, int(cell.config["check"]["requests"]), seed)
         t1 = time.perf_counter()
-        res = RD.served_gaps(cell.config, seed, device,
+        res = RS.served_gaps(cell.config, seed, device,
                              [served[i] for i in idx], control=True)
         t_ref = time.perf_counter() - t1
         print(json.dumps({"seed": seed, "correct": out["correct"],

@@ -8,10 +8,11 @@ Numbers compared, each with its limit (``rule``):
   with the most tokens in it, the mean and the widest gap by which a
   served token's logit lies below the best logit of the float32
   reference at that position (the model step: embedding, attention over
-  the paged KV through K1, MLP or MoE, head).  Each is compared where the
-  configuration's ``check`` states its limit (``mean_logit_gap_limit``,
-  ``logit_gap_limit``), set from the program's readings and the fp8
-  control's (PERF.md).
+  the paged KV through K1, MLP or MoE, head; the configuration's model
+  module, ``reference/<model>.py``, computes the reference).  Each is
+  compared where the configuration's ``check`` states its limit
+  (``mean_logit_gap_limit``, ``logit_gap_limit``), set from the
+  program's readings and the fp8 control's (PERF.md).
 - ``tokens_compared`` (>=): served tokens in that sample, at least the
   configuration's ``check.min_tokens_compared``: a run that serves
   nothing proves nothing.
@@ -28,7 +29,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from perfbench.reference import allocator as RA
-from perfbench.reference import decoder as RD
+from perfbench.reference import served as RS
 
 
 def sample(served: Sequence[tuple], n: int, seed: int) -> List[int]:
@@ -49,7 +50,7 @@ def judge(cfg: dict, seed: int, device, snap: dict,
     ck = cfg["check"]
     idx = sample(served, int(ck["requests"]), seed)
     reqs = [served[i] for i in idx]
-    gaps = (RD.served_gaps(cfg, seed, device, reqs)["gaps"] if reqs
+    gaps = (RS.served_gaps(cfg, seed, device, reqs)["gaps"] if reqs
             else [])
     flat = np.concatenate(gaps) if gaps else np.zeros(0)
     n_tok = int(flat.size)

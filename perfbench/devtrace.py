@@ -12,13 +12,23 @@ loop's arrival clock stands still for it.
 The spans wrap the program's functions from outside (the instance's
 methods and the modules' attributes the engine calls through); nothing of
 the program is edited, and the wrappers exist only inside a sample.
+
+The program's own spans (``repro_torch.obs.trace``: ``batcher.round``,
+``model.moe``, ``allocator.alloc_step``, ...) are recorded over the same
+samples (``port.record_spans``) and summed by name (``span_table``): self
+and total host seconds, self host syncs, count, and the device's idle
+seconds put down to the innermost program span (the sweep of
+``Spans.attribute``).  Per-layer readers take them from ``window.spans``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from perfbench import port
 
 SAMPLES = 8
 SAMPLE_ROUNDS = 2
@@ -28,6 +38,8 @@ K1_KERNELS = ("split_decode_kernel", "merge_splits_kernel")
 class Spans:
     """Host spans (name, start ns, end ns) on the clock the profiler's
     events use (``time.time_ns``)."""
+
+    NONE = "harness"    # what ``attribute`` gives where no span holds
 
     def __init__(self):
         self.items: List[Tuple[str, int, int]] = []
@@ -43,7 +55,7 @@ class Spans:
 
     def attribute(self, times: List[int]) -> List[str]:
         """The innermost span holding each of the sorted ``times``
-        ("harness" where none does).  The spans nest (one thread), so a
+        (``NONE`` where none does).  The spans nest (one thread), so a
         sweep with a stack finds them."""
         marks = sorted([(a, 1, n) for n, a, b in self.items]
                        + [(b, 0, n) for n, a, b in self.items])
@@ -56,7 +68,7 @@ class Spans:
                 elif name in stack:
                     del stack[len(stack) - 1 - stack[::-1].index(name)]
                 j += 1
-            out.append(stack[-1] if stack else "harness")
+            out.append(stack[-1] if stack else self.NONE)
         return out
 
 
@@ -151,8 +163,10 @@ class Sampler:
             while self.due and self.due[0] <= now:  # one sample, late or not
                 self.due.pop(0)
             spans = Spans()
-            cur = dict(spans=spans, rounds=0, prof=None,
-                       remove=install_spans(self.srv, spans))
+            undo = contextlib.ExitStack()
+            undo.callback(install_spans(self.srv, spans))
+            cur = dict(spans=spans, rounds=0, prof=None, undo=undo,
+                       program=undo.enter_context(port.record_spans()))
             if self.profile_device:
                 torch.cuda.synchronize(self.device)
                 cur["prof"] = DeviceSession()
@@ -179,32 +193,99 @@ class Sampler:
         cur["t1_ns"] = time.time_ns()
         if cur["prof"] is not None:
             cur["prof"].stop()
-        cur.pop("remove")()
+        cur.pop("undo").close()     # the program's recorder, the wrappers
         self.stolen += time.perf_counter() - t
         self.done.append(cur)
 
     def summary(self):
-        """The samples' traces read together (``summarize`` of each,
-        summed), with ``window_s``, the samples' total length; None when
-        no device trace was taken."""
-        if not self.profile_device or not self.done:
-            return None
+        """The samples read together: ``(trace, spans)``.  ``trace``: the
+        samples' device traces (``summarize`` of each, summed), with
+        ``window_s``, the samples' total length; None when no device trace
+        was taken.  ``spans``: the program's spans by name
+        (``span_table``, the samples' summed), with the device's idle
+        seconds put down to each where a trace was taken; None without a
+        sample."""
         busy = k1 = window = 0.0
         ops: Dict[str, float] = {}
         gaps: Dict[str, float] = {}
+        tables = []
         for cur in self.done:
-            one = summarize(device_events(cur["prof"]), cur["t0_ns"],
-                            cur["t1_ns"], cur["spans"], top=None)
-            busy += one["busy_s"]
-            k1 += one["k1_s"] or 0.0
-            window += (cur["t1_ns"] - cur["t0_ns"]) / 1e9
-            for into, pairs in ((ops, one["device_ops"]),
-                                (gaps, one["idle_gaps"])):
-                for name, sec in pairs:
-                    into[name] = into.get(name, 0.0) + sec
+            prog = [(s.name, s.start_ns, s.end_ns, s.parent, s.syncs)
+                    for s in cur["program"]]
+            idle = None
+            if cur["prof"] is not None:
+                one = summarize(device_events(cur["prof"]), cur["t0_ns"],
+                                cur["t1_ns"], cur["spans"], top=None,
+                                program=prog)
+                busy += one["busy_s"]
+                k1 += one["k1_s"] or 0.0
+                window += (cur["t1_ns"] - cur["t0_ns"]) / 1e9
+                for into, pairs in ((ops, one["device_ops"]),
+                                    (gaps, one["idle_gaps"])):
+                    for name, sec in pairs:
+                        into[name] = into.get(name, 0.0) + sec
+                idle = one["program_idle"]
+            tables.append(span_table(prog, idle))
+        spans = merge_tables(tables) if tables else None
+        if not self.profile_device or not self.done:
+            return None, spans
         return {"busy_s": busy, "k1_s": k1 if k1 > 0 else None,
                 "window_s": window, "samples": len(self.done),
-                "device_ops": _top(ops, 10), "idle_gaps": _top(gaps, 10)}
+                "device_ops": _top(ops, 10), "idle_gaps": _top(gaps, 10)}, \
+            spans
+
+
+def span_table(items: Sequence[tuple],
+               idle: Optional[Dict[str, float]] = None) -> Dict[str, dict]:
+    """The program's spans of one sample by name.  ``items``: (name, start
+    ns, end ns, parent index or -1, host syncs over the span) in the
+    order recorded.  Per name: ``count``; ``total_s``, the spans' host
+    seconds; ``self_s``, less their children's; ``outer_s``, the seconds
+    of those that no span of the same layer (the name's part before its
+    first dot) encloses; ``syncs``, self host syncs; and, where ``idle``
+    gives them, ``idle_s``, the device's idle seconds put down to the
+    name."""
+    out: Dict[str, dict] = {}
+
+    def entry(name):
+        return out.setdefault(name, dict(count=0, total_s=0.0, self_s=0.0,
+                                         outer_s=0.0, syncs=0))
+
+    for name, a, b, parent, syncs in items:
+        e, sec = entry(name), (b - a) / 1e9
+        e["count"] += 1
+        e["total_s"] += sec
+        e["self_s"] += sec
+        e["syncs"] += syncs
+        if parent >= 0:
+            p = entry(items[parent][0])
+            p["self_s"] -= sec
+            p["syncs"] -= syncs
+        layer, up = name.split(".")[0], parent
+        while up >= 0 and items[up][0].split(".")[0] != layer:
+            up = items[up][3]
+        if up < 0:
+            e["outer_s"] += sec
+    if idle is not None:
+        for name, e in out.items():
+            e["idle_s"] = idle.get(name, 0.0)
+    return out
+
+
+def merge_tables(tables: Sequence[Dict[str, dict]]) -> Dict[str, dict]:
+    """``span_table``s summed name by name."""
+    out: Dict[str, dict] = {}
+    for t in tables:
+        for name, e in t.items():
+            into = out.setdefault(name, {})
+            for k, v in e.items():
+                into[k] = into.get(k, 0) + v
+    return out
+
+
+def costliest(spans: Dict[str, dict], n: int = 15) -> Dict[str, dict]:
+    """The ``n`` names of a span table with the most self host seconds."""
+    return dict(sorted(spans.items(), key=lambda kv: -kv[1]["self_s"])[:n])
 
 
 def _top(d: Dict[str, float], n):
@@ -224,10 +305,13 @@ def device_events(session) -> List[Tuple[str, int, int]]:
 
 
 def summarize(events, t0_ns: int, t1_ns: int, spans: Spans,
-              top=10) -> Dict:
+              top=10, program: Optional[Sequence[tuple]] = None) -> Dict:
     """Busy seconds (the union of the device's intervals inside the
     window), K1's device seconds, the device operations that took most
-    time and the longest idle time by what the host was doing."""
+    time and the longest idle time by what the host was doing (the
+    harness's ``spans``); with ``program`` (``span_table``'s items), also
+    ``program_idle``: the idle seconds by the innermost program span
+    (those outside every program span left out)."""
     by_name: Dict[str, float] = {}
     k1 = 0.0
     iv = []
@@ -257,10 +341,19 @@ def summarize(events, t0_ns: int, t1_ns: int, spans: Spans,
         if a > prev:
             holes.append((prev, a))
         prev = max(prev, b)
-    names = spans.attribute([(a + b) // 2 for a, b in holes])
-    for (a, b), name in zip(holes, names):
+    mids = [(a + b) // 2 for a, b in holes]
+    for (a, b), name in zip(holes, spans.attribute(mids)):
         gaps[name] = gaps.get(name, 0.0) + (b - a) / 1e9
     busy = sum(b - a for a, b in merged) / 1e9
-    return {"busy_s": busy, "k1_s": k1 if k1 > 0 else None,
-            "device_ops": [[n[:160], s] for n, s in _top(by_name, top)],
-            "idle_gaps": _top(gaps, top)}
+    out = {"busy_s": busy, "k1_s": k1 if k1 > 0 else None,
+           "device_ops": [[n[:160], s] for n, s in _top(by_name, top)],
+           "idle_gaps": _top(gaps, top)}
+    if program is not None:
+        prog = Spans()
+        prog.items = [(n, a, b) for n, a, b, _, _ in program]
+        idle: Dict[str, float] = {}
+        for (a, b), name in zip(holes, prog.attribute(mids)):
+            if name != Spans.NONE:
+                idle[name] = idle.get(name, 0.0) + (b - a) / 1e9
+        out["program_idle"] = idle
+    return out

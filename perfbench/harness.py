@@ -19,6 +19,14 @@ A traced run serves the same load: the profiler and the host spans run
 only in short samples spread over the window (``devtrace.Sampler``), and
 each round records whether it lay in one, so that a reader takes host
 times from the rounds outside them and device shares from those inside.
+The program's own spans, recorded in the samples too, reach the readers
+summed by name as ``window.spans`` (``devtrace.span_table``; None in a
+timed run), and the 15 with the most self host time the result's
+``spans``.
+
+What belongs to the configuration's model (its weights' draws, the
+port's parameter tree, the reference, the counts) comes from its model
+modules (``perfbench/modules.py``).
 """
 from __future__ import annotations
 
@@ -318,7 +326,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.synchronize(dev)
     we = drv.rounds[-1]["t1"] if drv.rounds else time.perf_counter()
     drv.in_window = False
-    summary = sampler.summary() if sampler is not None else None
+    summary, spans = (sampler.summary() if sampler is not None
+                      else (None, None))
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
 
     snap = drv.snapshot()
@@ -338,7 +347,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         setup_s=ws - t_process, rounds=drv.rounds,
         recs=list(drv.recs.values()),
         max_pages=-(-mix["max_len"] // cfg["serving"]["page_size"]),
-        trace=summary,
+        trace=summary, spans=spans,
         window_s=summary["window_s"] if summary is not None else None)
     # the program's state goes before the reference runs: the batcher's
     # wrappers hold it in a cycle
@@ -375,5 +384,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                        "waiting_at_end": waiting}
     out["pool"] = pool
     out["sampling"] = sampling(window, summary)
+    if spans is not None:
+        out["spans"] = devtrace.costliest(spans)
     out["checks"] = checks["numbers"]
     return out

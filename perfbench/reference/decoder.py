@@ -1,58 +1,34 @@
-"""Plain float32 forward of the benchmark's decoder configurations: a
-Qwen2-style dense stack (GQA with q/k/v biases, RoPE, SwiGLU) and a
-GraniteMoe-style stack (the same attention, a top-k router over SwiGLU
-experts), as each configuration file states them (its ``departures``
-say where that differs from the published model).
+"""The ``decoder`` model of the benchmark's configurations (a configuration
+file without a ``"model"`` key): a Qwen2-style dense stack (GQA with q/k/v
+biases, RoPE, SwiGLU) and a GraniteMoe-style stack (the same attention,
+a top-k router over SwiGLU experts), as each configuration file states
+them (its ``departures`` say where that differs from the published
+model).  The plain float32 forward and its fp8 control (``hidden``,
+``head``; judged by ``served.served_gaps``), the weights' draws
+(``plan``), and the counts the yardstick takes from the model
+(``matmul_params_per_token``, ``paged_layers``).
 
-``served_gaps`` judges the tokens a program served: for every served
-token, by how much its logit lies below the best logit of the reference
-at that position.  Greedy decoding in the configuration's precision
-gives gaps at rounding level; a wrong token, page or lane gives gaps the
-size of the logits' spread.  ``precision="fp8"`` runs the control: every
-bf16 matmul's weights (per output channel) and inputs (per row), and the
-K/V (per token and head), rounded to float8 e4m3 and back.
-
-Runs layer by layer over all sequences at once, the weights of one layer
-upcast at a time, TF32 off, so that it fits beside nothing else on the
+``hidden`` runs layer by layer over all sequences at once, the weights of
+one layer upcast at a time, so that it fits beside nothing else on the
 card once the program is gone.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from perfbench.reference import weights as RW
+from perfbench.reference.served import Lin, fp8
+# the judge, importable from the decoder too
+from perfbench.reference.served import served_gaps  # noqa: F401
+from perfbench.yardstick import sizes
 
-F8_MAX = 448.0
+BF16, F32 = torch.bfloat16, torch.float32
 ROUTER_SNAP = 64.0   # router logits snapped to 1/64 (the departure the
                      # granite file states)
 GLOBAL = ("embed", "lm_head", "final_norm")   # the draws not per layer
-
-
-def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 with one scale per slice along ``dim``
-    (the amax maps to the format's largest value), back in float32."""
-    s = (x.abs().amax(dim=dim, keepdim=True) / F8_MAX).clamp_min(1e-12)
-    return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
-
-
-class _Lin:
-    """float32 matmuls, or the fp8 control's."""
-
-    def __init__(self, fp8: bool):
-        self.fp8 = fp8
-
-    def w(self, t: torch.Tensor) -> torch.Tensor:
-        """A [in, out] weight in float32 (fp8: one scale per output)."""
-        t = t.float()
-        return _fp8(t, 0) if self.fp8 else t
-
-    def __call__(self, x, w):
-        return (_fp8(x, -1) if self.fp8 else x) @ w
 
 
 def _rmsnorm(x, scale, eps):
@@ -112,7 +88,7 @@ def _moe(x, lw, cfg, lin):
 def hidden(cfg: dict, w: Dict[str, torch.Tensor], seqs: Sequence[np.ndarray],
            precision: str = "f32") -> torch.Tensor:
     """Final-normed hidden states [sum of lengths, d] of every sequence."""
-    lin = _Lin(precision == "fp8")
+    lin = Lin(precision == "fp8")
     d, L = cfg["hidden_size"], cfg["num_hidden_layers"]
     nq, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     hd = cfg.get("head_dim") or d // nq
@@ -136,7 +112,7 @@ def hidden(cfg: dict, w: Dict[str, torch.Tensor], seqs: Sequence[np.ndarray],
         k = _rope(k.reshape(-1, nkv, hd), pos, theta)
         v = v.reshape(-1, nkv, hd)
         if lin.fp8:
-            k, v = _fp8(k, -1), _fp8(v, -1)
+            k, v = fp8(k, -1), fp8(v, -1)
         outs, o = [], 0
         for n in lens:
             outs.append(_attention(q[o:o + n], k[o:o + n], v[o:o + n],
@@ -153,64 +129,57 @@ def hidden(cfg: dict, w: Dict[str, torch.Tensor], seqs: Sequence[np.ndarray],
     return _rmsnorm(x, w["final_norm"], eps)
 
 
-def served_gaps(cfg: dict, seed: int, device, requests: List[tuple],
-                control: bool = False, block: int = 1024) -> dict:
-    """Judge served tokens.  ``requests``: (prompt, served tokens) pairs,
-    served non-empty.  Returns ``gaps``: per request, the gap of each
-    served token (the reference's best logit at that position minus the
-    served token's).  With ``control``, also ``control_gaps``: at the same
-    positions, the gap of the token the fp8 control puts first."""
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            return _served_gaps(cfg, seed, device, requests, control, block)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
-
-
-def _served_gaps(cfg, seed, device, requests, control, block):
-    w = RW.draw(cfg, seed, device)
-    # the forward runs over prompt + served tokens but the last; row r of
-    # a sequence predicts its token r + 1
-    seqs, rows, targets, o = [], [], [], 0
-    for prompt, served in requests:
-        full = np.concatenate([np.asarray(prompt), np.asarray(served)])
-        seqs.append(full[:-1])
-        nk = len(prompt)
-        rows.append(o + np.arange(nk - 1, len(full) - 1))
-        targets.append(np.asarray(served))
-        o += len(full) - 1
-    rows_t = torch.as_tensor(np.concatenate(rows), device=w["embed"].device)
-    tgt = torch.as_tensor(np.concatenate(targets).astype(np.int64),
-                          device=rows_t.device)
-    hid = {"f32": hidden(cfg, w, seqs, "f32")[rows_t]}
-    if control:
-        hid["fp8"] = hidden(cfg, w, seqs, "fp8")[rows_t]
-    lin32, lin8 = _Lin(False), _Lin(True)
-    head32 = lin32.w(_head(cfg, w))
-    head8 = lin8.w(_head(cfg, w)) if control else None
-    mult = 1.0 / cfg.get("logits_scaling", 1.0)
-    gap, cgap = [], []
-    for b0 in range(0, rows_t.numel(), block):
-        sl = slice(b0, b0 + block)
-        ref = lin32(hid["f32"][sl], head32) * mult
-        best = ref.amax(-1)
-        gap.append(best - ref.gather(-1, tgt[sl, None])[:, 0])
-        if control:
-            top = (lin8(hid["fp8"][sl], head8) * mult).argmax(-1)
-            cgap.append(best - ref.gather(-1, top[:, None])[:, 0])
-    split = np.cumsum([len(t) for t in targets])[:-1]
-    out = {"gaps": np.split(torch.cat(gap).cpu().numpy(), split)}
-    if control:
-        out["control_gaps"] = np.split(torch.cat(cgap).cpu().numpy(), split)
-    return out
-
-
-def _head(cfg, w):
+def head(cfg: dict, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The read-out [d, V]: the tied embedding or the LM head."""
     return (w["embed"].t() if cfg["tie_word_embeddings"]
             else w["lm_head"])
+
+
+def plan(cfg: dict) -> List[Tuple[str, tuple, float, float, torch.dtype]]:
+    """(name, shape, scale, offset, dtype) of every tensor, in draw order:
+    the published head counts, the layers stacked on a leading axis."""
+    d, V, L = cfg["hidden_size"], cfg["vocab_size"], cfg["num_hidden_layers"]
+    nq, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    hd = cfg.get("head_dim") or d // nq
+    ff, E = cfg["intermediate_size"], cfg.get("num_local_experts", 0)
+    mat = lambda n, shape, fan_in, dt=BF16: (n, shape, fan_in ** -0.5,
+                                             0.0, dt)
+    out = [mat("embed", (V, d), d)]
+    if not cfg["tie_word_embeddings"]:
+        out.append(mat("lm_head", (d, V), d))
+    out += [mat("wq", (L, d, nq * hd), d), mat("wk", (L, d, nkv * hd), d),
+            mat("wv", (L, d, nkv * hd), d), mat("wo", (L, nq * hd, d),
+                                                nq * hd)]
+    if cfg["qkv_bias"]:
+        out += [("bq", (L, nq * hd), 0.1, 0.0, BF16),
+                ("bk", (L, nkv * hd), 0.1, 0.0, BF16),
+                ("bv", (L, nkv * hd), 0.1, 0.0, BF16)]
+    out += [("ln1", (L, d), 0.1, 1.0, BF16), ("ln2", (L, d), 0.1, 1.0, BF16),
+            ("final_norm", (d,), 0.1, 1.0, BF16)]
+    if E:
+        out += [mat("router", (L, d, E), d, F32),
+                mat("wg", (L, E, d, ff), d), mat("wu", (L, E, d, ff), d),
+                mat("wd", (L, E, ff, d), ff)]
+    else:
+        out += [mat("wg", (L, d, ff), d), mat("wu", (L, d, ff), d),
+                mat("wd", (L, ff, d), ff)]
+    return out
+
+
+def matmul_params_per_token(cfg: dict) -> int:
+    """Weights a token multiplies by: q, k, v, o at the published head
+    counts, the MLP (or the router and the ``k`` experts it picks) in every
+    layer, and the LM head.  The embedding lookup is no matmul."""
+    s = sizes(cfg)
+    d, hd = s["d"], s["hd"]
+    attn = d * hd * (2 * s["nq"] + 2 * s["nkv"])
+    if s["E"]:
+        ffn = d * s["E"] + s["k"] * 3 * d * s["ff"]
+    else:
+        ffn = 3 * d * s["ff"]
+    return s["L"] * (attn + ffn) + d * s["V"]
+
+
+def paged_layers(cfg: dict) -> int:
+    """Layers that attend over the paged KV through K1: every layer."""
+    return cfg["num_hidden_layers"]

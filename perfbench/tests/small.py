@@ -1,5 +1,6 @@
 """Small cells for the CPU tests: the benchmark's configurations and
-mixes with every size cut down, the keys and the code paths the same."""
+mixes with every size cut down, the keys and the code paths the same (a
+configuration's cut is its model's, ``layouts/<model>.py``'s ``small``)."""
 from __future__ import annotations
 
 import json
@@ -7,32 +8,14 @@ import pathlib
 
 import torch
 
-from perfbench import harness
+from perfbench import harness, modules
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 
 
 def config(name: str) -> dict:
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
-    if cfg["model_type"] == "qwen2":
-        sizes = dict(hidden_size=80, intermediate_size=96, vocab_size=256,
-                     num_hidden_layers=2, num_attention_heads=10,
-                     num_key_value_heads=2, rope_theta=10000.0)
-        port = dict(d_model=80, d_ff=96, vocab_size=256, num_layers=2,
-                    num_heads=10, num_kv_heads=2, head_dim=8,
-                    pad_heads_to=12, rope_theta=10000.0)
-    else:
-        sizes = dict(hidden_size=64, intermediate_size=32, vocab_size=256,
-                     num_hidden_layers=2, num_attention_heads=4,
-                     num_key_value_heads=2, num_local_experts=4,
-                     num_experts_per_tok=2, attention_multiplier=0.125)
-        port = dict(d_model=64, d_ff=32, vocab_size=256, num_layers=2,
-                    num_heads=4, num_kv_heads=2, head_dim=16,
-                    num_experts=4, experts_per_token=2,
-                    moe_capacity_factor=2.0)
-        sizes["attention_multiplier"] = 16 ** -0.5
-    cfg.update(sizes)
-    cfg["port"].update(port)
+    cfg = modules.layout(cfg).small(cfg)
     cfg["serving"] = {"page_size": 4, "megastep_k": 4}
     cfg["check"] = dict(cfg["check"], requests=64, min_tokens_compared=8)
     return cfg

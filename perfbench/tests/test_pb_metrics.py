@@ -142,3 +142,105 @@ def test_traced_run_samples_a_few_rounds_and_takes_its_spans_off():
     assert (EG.fused_decode_kernel, EG.nn.rmsnorm, L.mlp_apply) == before
     assert out["correct"], out["checks"]
     assert "megastep_ms_per_step.open" in out["metrics"]
+
+
+def traced(spans, sampled=2, plain=1):
+    """A traced window: ``sampled`` rounds in samples, ``plain`` outside,
+    K = 8, and the program's span table ``spans``."""
+    w = window([], [dict(sampled=True)] * sampled
+               + [dict(sampled=False)] * plain)
+    w.spans = spans
+    return w
+
+
+def test_span_table_self_total_and_outermost_layer_time():
+    from perfbench import devtrace
+    ms = 1_000_000
+    # batcher.round > allocator.rebuild > allocator.alloc_step (nested),
+    # then a root allocator.free, and model.moe > model.moe.router
+    items = [("batcher.round", 0, 100 * ms, -1, 9),
+             ("allocator.rebuild", 10 * ms, 40 * ms, 0, 5),
+             ("allocator.alloc_step", 15 * ms, 25 * ms, 1, 2),
+             ("model.moe", 50 * ms, 90 * ms, 0, 1),
+             ("model.moe.router", 55 * ms, 60 * ms, 3, 1),
+             ("allocator.free", 120 * ms, 126 * ms, -1, 0)]
+    t = devtrace.span_table(items, idle={"model.moe": 0.004})
+    assert t["allocator.alloc_step"]["outer_s"] == 0.0
+    assert t["allocator.alloc_step"]["total_s"] == pytest.approx(0.010)
+    assert t["allocator.rebuild"]["outer_s"] == pytest.approx(0.030)
+    assert t["allocator.rebuild"]["self_s"] == pytest.approx(0.020)
+    assert t["allocator.rebuild"]["syncs"] == 3
+    assert t["batcher.round"]["self_s"] == pytest.approx(0.030)
+    assert t["batcher.round"]["syncs"] == 3
+    assert t["model.moe"]["total_s"] == pytest.approx(0.040)
+    assert t["model.moe.router"]["outer_s"] == 0.0
+    assert t["model.moe"]["idle_s"] == 0.004
+    assert t["allocator.free"]["idle_s"] == 0.0
+    both = devtrace.merge_tables([t, t])
+    assert both["allocator.rebuild"]["count"] == 2
+    assert both["allocator.rebuild"]["outer_s"] == pytest.approx(0.060)
+    # only the outermost allocator spans count: 30 ms + 6 ms over the
+    # 2 sampled rounds' 16 token steps
+    read = harness.reader("allocator_ms_per_step.closed")
+    assert read(traced(t)) == pytest.approx(36.0 / 16)
+    assert harness.reader("moe_ms_per_step.closed")(traced(t)) == \
+        pytest.approx(40.0 / 16)
+
+
+def test_span_readers_are_silent_without_their_spans():
+    from perfbench import devtrace
+    dense = devtrace.span_table([("batcher.round", 0, 5_000_000, -1, 0),
+                                 ("allocator.alloc_step", 0, 1_000_000, 0,
+                                  1)])
+    for m in ("allocator_ms_per_step.open", "moe_ms_per_step.closed"):
+        assert harness.reader(m)(traced(None)) is None    # a timed run
+        assert harness.reader(m)(traced({})) is None
+    assert harness.reader("moe_ms_per_step.closed")(traced(dense)) is None
+    assert harness.reader("allocator_ms_per_step.open")(traced(dense)) == \
+        pytest.approx(1.0 / 16)
+    # spans but no sampled round to divide by
+    assert harness.reader("allocator_ms_per_step.open")(
+        traced(dense, sampled=0)) is None
+
+
+def test_device_idle_goes_to_the_innermost_program_span():
+    from perfbench import devtrace
+    ms = 1_000_000
+    prog = [("batcher.round", 0, 100 * ms, -1, 0),
+            ("model.rope", 20 * ms, 30 * ms, 0, 2)]
+    events = [("gemm", 0, 20 * ms), ("gemm", 30 * ms, 90 * ms)]
+    out = devtrace.summarize(events, 0, 100 * ms, devtrace.Spans(),
+                             top=None, program=prog)
+    # holes: 20-30 ms inside model.rope, 90-100 ms inside batcher.round
+    assert out["program_idle"] == pytest.approx({"model.rope": 0.010,
+                                                 "batcher.round": 0.010})
+    assert dict(out["idle_gaps"]) == pytest.approx({"harness": 0.020})
+
+
+def test_traced_run_reads_the_program_spans_in_its_samples_only(
+        monkeypatch):
+    import time
+    from perfbench import devtrace
+    from repro_torch.obs import trace
+    full = {}
+    costliest = devtrace.costliest
+
+    def spy(spans, n=15):
+        full.update(spans)
+        return costliest(spans, n)
+    monkeypatch.setattr(devtrace, "costliest", spy)
+    out = harness.run_cell(
+        small.cell("granite-moe-1b-a400m.decode-batch", trace=True),
+        2**31 + 9, 2.0, True, "cpu", time.perf_counter())
+    assert trace._spans is None                 # the recorder is off again
+    assert out["correct"], out["checks"]
+    assert 0 < len(out["spans"]) <= 15 < len(full)
+    assert all(full[n] == e for n, e in out["spans"].items())
+    # every span lies in a sampled round: one batcher.round each, and
+    # one MoE block a layer a token step
+    rounds = out["sampling"]["rounds_sampled"]
+    assert full["batcher.round"]["count"] == rounds
+    assert full["model.moe"]["count"] == rounds * 4 * 2
+    assert "allocator.alloc_step" in full
+    for m in ("allocator_ms_per_step.closed", "moe_ms_per_step.closed"):
+        assert out["metrics"][m]["value"] > 0

@@ -1,35 +1,36 @@
 """The plain reference against the port at the small sizes on the CPU:
-the decoder's logits against the port's full-sequence forward in float32
-(the padded head layout and the MoE included), the allocator's hash
-against the port's, and the allocator judge against states it must
-refuse."""
-import dataclasses
+each configuration's reference logits against the port's full-sequence
+forward in float32, through its model modules (the padded head layout
+and the MoE included), the allocator's hash against the port's, and the
+allocator judge against states it must refuse."""
+import json
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from perfbench import harness, port
+from perfbench import harness, modules, port
 from perfbench.reference import allocator as RA
-from perfbench.reference import decoder as RD
 from perfbench.reference import weights as RW
 from perfbench.tests import small
 
+CONFIGS = [c["name"] for c in json.loads(
+    (harness.HERE.parent / "BENCHMARK.json").read_text())["configs"]]
 
-@pytest.mark.parametrize("name", ["qwen2.5-32b.stage16",
-                                  "granite-moe-1b-a400m.unscaled"])
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_reference_logits_match_the_port_forward(name):
-    from repro_torch.models import lm, nn
+    """Every configuration of BENCHMARK.json, through its model modules:
+    the reference's logits against the port's forward in float32."""
     cfg = small.config(name)
+    ref, lay = modules.reference(cfg), modules.layout(cfg)
     w = RW.draw(cfg, 2**31 + 5, "cpu")
-    prm = nn.tree_map(lambda t: t.float(), port.params(cfg, w))
-    pc = dataclasses.replace(port.model_config(cfg), dtype="float32")
     seq = np.random.default_rng(1).integers(0, cfg["vocab_size"], 37)
-    got, _ = lm.forward(pc, prm, torch.as_tensor(seq)[None])
-    h = RD.hidden(cfg, w, [seq])
-    ref = h @ RD._head(cfg, w).float()
-    assert torch.allclose(got[0], ref, atol=1e-4, rtol=1e-4)
+    got = lay.forward(cfg, port.params(cfg, w), torch.as_tensor(seq))
+    want = ref.hidden(cfg, w, [seq]) @ ref.head(cfg, w).float() \
+        / cfg.get("logits_scaling", 1.0)
+    assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_padded_heads_serve_the_published_function():

@@ -4,16 +4,23 @@ published sizes (the published head count, not the port's padding; the
 experts a token uses, not the port's capacity slots), so that a later
 change to the program cannot move the yardstick.
 
+What depends on the model (the matmul weights a token uses, the layers
+that attend over the paged KV) comes from the configuration's model
+module (``modules.reference``).
+
 Peaks: NVIDIA's H100 SXM data sheet, dense rates at 700 W.
 """
 from __future__ import annotations
+
+from perfbench import modules
 
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor-core rate
 H100_HBM_BYTES_PER_S = 3.35e12  # device memory
 
 
 def sizes(cfg: dict) -> dict:
-    """The published sizes a count needs, read from a configuration file."""
+    """The published sizes a count needs, read from a configuration file
+    (``L``: every layer, of whatever kind)."""
     d = cfg["hidden_size"]
     nq = cfg["num_attention_heads"]
     return dict(d=d, nq=nq, nkv=cfg["num_key_value_heads"],
@@ -25,25 +32,17 @@ def sizes(cfg: dict) -> dict:
 
 
 def matmul_params_per_token(cfg: dict) -> int:
-    """Weights a token multiplies by: q, k, v, o at the published head
-    counts, the MLP (or the router and the ``k`` experts it picks) in every
-    layer, and the LM head.  The embedding lookup is no matmul."""
-    s = sizes(cfg)
-    d, hd = s["d"], s["hd"]
-    attn = d * hd * (2 * s["nq"] + 2 * s["nkv"])
-    if s["E"]:
-        ffn = d * s["E"] + s["k"] * 3 * d * s["ff"]
-    else:
-        ffn = 3 * d * s["ff"]
-    return s["L"] * (attn + ffn) + d * s["V"]
-
+    """Weights a token multiplies by, the LM head included: the
+    configuration's model module counts them (``modules.reference``)."""
+    return modules.reference(cfg).matmul_params_per_token(cfg)
 
 
 def window_flops(cfg: dict, steps: int, attended: int) -> float:
     """Model FLOPs of ``steps`` lane token steps that attended ``attended``
-    tokens in all (summed over the steps)."""
+    tokens in all (summed over the steps): 2 per matmul weight a token
+    uses, and q.k and p.v in each paged layer."""
     s = sizes(cfg)
-    per_attended = 4 * s["nq"] * s["hd"] * s["L"]
+    per_attended = 4 * s["nq"] * s["hd"] * paged_layers(cfg)
     return 2.0 * matmul_params_per_token(cfg) * steps \
         + float(per_attended) * attended
 
@@ -54,13 +53,20 @@ def k1_bytes(cfg: dict, steps: int, attended: int, max_pages: int,
     steps that attended ``attended`` tokens in all, summed over the paged
     layers: each attended token's K and V read once, and per lane step q
     (published heads), the f32 partials (o, m, l) written, the lane's
-    block-table row and its position read."""
+    block-table row and its position read.  The paged layers are the
+    model module's ``paged_layers``."""
     s = sizes(cfg)
     nq, nkv, hd = s["nq"], s["nkv"], s["hd"]
     per_token = 2 * nkv * hd * kv_bytes
     per_step = (nq * hd * q_bytes + 4 * (nq * hd + 2 * nq)
                 + 4 * max_pages + 4)
-    return float(s["L"]) * (per_token * attended + per_step * steps)
+    return float(paged_layers(cfg)) * (per_token * attended
+                                       + per_step * steps)
+
+
+def paged_layers(cfg: dict) -> int:
+    """Layers that attend over the paged KV through K1."""
+    return modules.reference(cfg).paged_layers(cfg)
 
 
 def lane_steps(p0, p1) -> tuple:
