@@ -14,6 +14,7 @@ ARCHS = (
     "qwen3_moe_235b_a22b",
     "mamba2_2p7b",
     "qwen2_vl_7b",
+    "granite_4p0_h_small",
 )
 
 # public --arch ids (hyphen/dot form) -> module name
@@ -28,6 +29,7 @@ ARCH_IDS = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "mamba2-2.7b": "mamba2_2p7b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "granite-4.0-h-small": "granite_4p0_h_small",
 }
 
 

@@ -9,7 +9,7 @@ dry-run's ``input_specs`` is not part of this package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,6 +41,18 @@ class ModelConfig:
     ssm_chunk: int = 256         # SSD chunk length
     # --- hybrid (zamba2): shared attention block every k SSM blocks ---
     shared_attn_every: int = 0
+    # --- hybrid (granitemoehybrid): the mixer of each layer, "mamba" or
+    # "attention", each layer with its own FFN (models/hybrid.py); empty
+    # for zamba2's shared block ---
+    layer_types: Tuple[str, ...] = ()
+    shared_d_ff: int = 0         # shared SwiGLU expert beside the routed ones
+    # --- GraniteMoe's scalars; each off at its default ---
+    attention_multiplier: float = 0.0   # softmax scale; 0 -> 1/sqrt(hd)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0    # scales each block's output
+    logits_scaling: float = 1.0         # logits divided by it
+    rms_norm_eps: float = 1e-6
+    position_embedding: str = "rope"    # "rope" or "nope" (no positions)
     # --- local/global (gemma3): pattern_local:1 global, window size ---
     local_window: int = 0
     pattern_local: int = 0       # e.g. 5 -> 5 local then 1 global
@@ -121,10 +133,19 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The attention softmax scale when ``attention_multiplier`` sets
+        one; None for the default 1/sqrt(hd), which each attention path
+        computes as it always has."""
+        return self.attention_multiplier or None
+
     def param_count(self) -> int:
         """Analytic parameter count N (for 6·N·D model FLOPs)."""
         d, V = self.d_model, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.layer_types:
+            return emb + _typed_stack_params(self, self.num_experts)
         if self.family == "ssm":
             return emb + self.num_layers * _mamba2_block_params(self)
         if self.family == "hybrid":
@@ -148,10 +169,12 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """N_active for MoE (experts_per_token of num_experts)."""
-        if self.family != "moe":
-            return self.param_count()
         d, V = self.d_model, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.layer_types:
+            return emb + _typed_stack_params(self, self.experts_per_token)
+        if self.family != "moe":
+            return self.param_count()
         per_layer = (_attn_params(self) + 2 * d
                      + self.experts_per_token * _mlp_params(self, self.d_ff)
                      + d * self.num_experts)
@@ -170,6 +193,24 @@ def _attn_params(cfg: ModelConfig) -> int:
 
 def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
     return 3 * cfg.d_model * d_ff  # SwiGLU: gate, up, down
+
+
+def _typed_stack_params(cfg: ModelConfig, experts: int) -> int:
+    """A ``layer_types`` stack without its embedding: each mixer with its
+    pre-norm, and in every layer an FFN (``experts`` of the routed
+    SwiGLU experts with the router, or one MLP of ``d_ff``), the shared
+    expert and the FFN's pre-norm, then the final norm."""
+    d = cfg.d_model
+    n_attn = cfg.layer_types.count("attention")
+    mixers = ((cfg.num_layers - n_attn) * _mamba2_block_params(cfg)
+              + n_attn * (_attn_params(cfg) + d))
+    if cfg.num_experts:
+        ffn = experts * _mlp_params(cfg, cfg.d_ff) + d * cfg.num_experts
+    else:
+        ffn = _mlp_params(cfg, cfg.d_ff)
+    if cfg.shared_d_ff:
+        ffn += _mlp_params(cfg, cfg.shared_d_ff)
+    return mixers + cfg.num_layers * (ffn + d) + d
 
 
 def _mamba2_block_params(cfg: ModelConfig) -> int:
@@ -202,6 +243,9 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     """Is (arch, shape) a runnable cell?  (flag, reason-if-skipped)."""
+    if cfg.layer_types:
+        return False, ("layer_types stack: runs on one device only (no "
+                       "mesh layout for it)")
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, ("pure full-attention arch: 500k decode requires "
                        "sub-quadratic attention (DESIGN.md §6)")

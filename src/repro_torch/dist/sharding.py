@@ -235,6 +235,9 @@ PARAM_AXES = {
     ("moe", "wi_gate"): ("experts", "embed", "mlp_shard"),
     ("moe", "wi_up"): ("experts", "embed", "mlp_shard"),
     ("moe", "wo"): ("experts", "mlp_shard", "embed"),
+    ("shared", "wi_gate"): ("embed", "mlp"),
+    ("shared", "wi_up"): ("embed", "mlp"),
+    ("shared", "wo"): ("mlp", "embed"),
     ("mamba", "w_z"): ("embed", "ssm_inner"),
     ("mamba", "w_x"): ("embed", "ssm_inner"),
     ("mamba", "w_bc"): ("embed", None),
@@ -250,7 +253,9 @@ PARAM_AXES = {
     ("lm_head", "w"): ("embed", "vocab"),
     ("lm_head", "b"): ("vocab",),
 }
-_STACKED = ("layers", "encoder", "decoder")
+# stacked on a leading layer axis; "mamba", "attn" and "ffn" are a
+# layer_types stack's per-kind stacks (models/hybrid.py)
+_STACKED = ("layers", "encoder", "decoder", "mamba", "attn", "ffn")
 
 
 def param_axes(params):

@@ -31,12 +31,13 @@ from repro_torch.obs.trace import span
 
 
 def fused_decode_kernel(q, k_pages, v_pages, block_table, positions, *,
-                        scales=None, partials: bool = False):
+                        scales=None, partials: bool = False, scale=None):
     """q [B,QH,D]; pools [NP,PS,KH,D] (contiguous, e.g. one layer of the
     engine's [L,...] pool); block_table int32[B,MP] RAW cache rows (-1
     absent; liveness comes from ``positions``); positions int32[B] (attends
     tokens <= positions[b]); ``scales``: optional (k_scales, v_scales)
-    [NP,PS,KH] bf16 for int8 pools.
+    [NP,PS,KH] bf16 for int8 pools; ``scale`` the softmax scale (None:
+    D ** -0.5).
 
     Returns [B,QH,D] (q's dtype), or with ``partials=True`` the f32 triple
     (o [B,KH,G,D], m [B,KH,G], l [B,KH,G])."""
@@ -46,10 +47,11 @@ def fused_decode_kernel(q, k_pages, v_pages, block_table, positions, *,
         if q.device.type == "cpu":
             return fused_decode_plain(q, k_pages, v_pages, block_table,
                                       positions, scales=scales,
-                                      partials=partials)
+                                      partials=partials, scale=scale)
         out = launch_decode("fused_decode_kernel", q, k_pages, v_pages,
                             block_table, positions, scales,
-                            from_positions=True, partials=partials)
+                            from_positions=True, partials=partials,
+                            scale=scale)
         fused_decode_kernel.launches += 1
         return out
 

@@ -30,9 +30,10 @@ def block_table_slots_ref(block_table, positions, *, page_size: int):
 
 
 def fused_decode_plain(q, k_pages, v_pages, block_table, positions, *,
-                       scales=None, partials: bool = False):
+                       scales=None, partials: bool = False, scale=None):
     """K1's function in plain PyTorch: attention of q over every token
     ``tok <= positions[b]`` of the live pages of ``block_table[b]``.
+    ``scale`` is the softmax scale (None: D ** -0.5).
     Returns [B,QH,D] in q's dtype, or with ``partials=True`` the f32
     (o [B,KH,G,D], m [B,KH,G], l [B,KH,G]) with ``m = -1e30, l = 0, o = 0``
     for a sequence with no live token."""
@@ -52,7 +53,8 @@ def fused_decode_plain(q, k_pages, v_pages, block_table, positions, *,
              & torch.repeat_interleave(slots >= 0, PS, dim=1))
     vmask = valid[:, None, None, :]
     qg = q.reshape(B, KH, G, D).float()
-    s = torch.einsum("bhgd,blhd->bhgl", qg, k) * (D ** -0.5)
+    s = torch.einsum("bhgd,blhd->bhgl", qg, k) * (
+        D ** -0.5 if scale is None else scale)
     s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.where(vmask, torch.exp(s - m[..., None]), torch.zeros_like(s))

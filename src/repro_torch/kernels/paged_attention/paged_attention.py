@@ -90,10 +90,11 @@ def split_count(B: int, KH: int, MP: int, PS: int, sms: int) -> int:
 
 
 def launch_decode(name, q, k_pages, v_pages, rows, ctl, scales, *,
-                  from_positions: bool, partials: bool):
+                  from_positions: bool, partials: bool, scale=None):
     """Launch the split decode kernel and its merge on q's stream.  ``rows``
     int32[B,MP] page rows; ``ctl`` int32[B], the positions (K1,
-    ``from_positions=True``: attends ``ctl+1`` tokens) or the lengths (K2).
+    ``from_positions=True``: attends ``ctl+1`` tokens) or the lengths (K2);
+    ``scale`` the softmax scale (None: D ** -0.5).
     Returns [B,QH,D] in q's dtype, or the f32 (o, m, l) partials."""
     lib = _build.library()
     B, QH, D = q.shape
@@ -114,7 +115,8 @@ def launch_decode(name, q, k_pages, v_pages, rows, ctl, scales, *,
     rc = lib.decode_attention_launch(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(ks), _build.ptr(vs), _build.ptr(rows), _build.ptr(ctl),
-        int(from_positions), B, KH, G, D, MP, NP, PS, S, float(D ** -0.5),
+        int(from_positions), B, KH, G, D, MP, NP, PS, S,
+        float(D ** -0.5 if scale is None else scale),
         _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pages.dtype],
         int(partials), _build.ptr(scratch), _build.ptr(out), _build.ptr(o),
         _build.ptr(m), _build.ptr(l), _build.stream(q.device))

@@ -440,6 +440,8 @@ def main():
     over = {}
     if args.layers:
         over["num_layers"] = args.layers
+        if cfg.layer_types:       # the first layers of the stack
+            over["layer_types"] = cfg.layer_types[:args.layers]
     if args.fused_kernel:
         over["fused_kernel"] = True
     if args.telemetry:
@@ -450,7 +452,7 @@ def main():
     try:
         model = get_model(cfg)
     except ValueError as e:   # a depth off gemma3's superblocks, or a
-        # hybrid below one group
+        # hybrid below one group or without an attention layer
         ap.error(str(e))
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -82,15 +82,17 @@ def apply_mrope(x, positions3, sections: Tuple[int, ...], theta: float):
 # Attention.
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_chunk: int = DEFAULT_Q_CHUNK, q_offset: int = 0):
+                    q_chunk: int = DEFAULT_Q_CHUNK, q_offset: int = 0,
+                    scale: Optional[float] = None):
     """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd].
 
     ``q_offset`` is the absolute position of q[0]; kv positions are
-    0..Sk-1.  Differentiable (autograd)."""
+    0..Sk-1; ``scale`` the softmax scale (None: 1/sqrt(hd)).
+    Differentiable (autograd)."""
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     kf = k.float().permute(0, 2, 1, 3)                  # [B,kv,Sk,hd]
     vf = v.float().permute(0, 2, 1, 3)
     kpos = torch.arange(Sk, device=q.device)
@@ -176,17 +178,20 @@ def kv_head_slice(k, v, shard: int, kv_rep: int):
 
 def self_attention(p, x, positions, cfg, *, window: int = 0,
                    mrope_positions=None, causal: bool = True):
-    """Full-sequence self attention (prefill)."""
+    """Full-sequence self attention (prefill); no positions at all with
+    ``cfg.position_embedding == "nope"``."""
     q, k, v = attn_qkv(p, x)
-    if mrope_positions is not None and cfg.mrope_sections:
-        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
-                        cfg.rope_theta)
-        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
-                        cfg.rope_theta)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    if cfg.position_embedding != "nope":
+        if mrope_positions is not None and cfg.mrope_sections:
+            q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        scale=cfg.attn_scale)
     return attn_out(p, o)
 
 
@@ -218,11 +223,16 @@ def mlp_init(d: int, d_ff: int, dtype, generator, device):
     }
 
 
+def swiglu(p, x):
+    """SwiGLU: silu(x @ wi_gate) * (x @ wi_up) @ wo."""
+    g = F.silu(x @ p["wi_gate"])
+    u = x @ p["wi_up"]
+    return (g * u) @ p["wo"]
+
+
 def mlp_apply(p, x):
     with span("model.mlp"):
-        g = F.silu(x @ p["wi_gate"])
-        u = x @ p["wi_up"]
-        return (g * u) @ p["wo"]
+        return swiglu(p, x)
 
 
 def block_init(cfg, dtype, generator, device, d_ff: Optional[int] = None):

@@ -117,7 +117,10 @@ def _logits(cfg, params, x):
             logits = nn.embed_logits(params["embed"], x)
         else:
             logits = nn.dense(params["lm_head"], x)
-        return logits.float()
+        logits = logits.float()
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
+        return logits
 
 
 def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):

@@ -15,6 +15,10 @@ so no atomic add decides the bits and a decode step gives the same bits on
 every run.  Nothing here waits on the card (no ``bincount``, no
 data-dependent shape).
 
+A shared expert (``cfg.shared_d_ff``, GraniteMoeHybrid's shared MLP): one
+SwiGLU MLP that every token passes through, added to the routed output
+(``p["shared"]``), on one device.
+
 On a mesh each rank combines its own experts' outputs in that same
 order, and the ranks' partial outputs are summed by a psum in member order
 (``dist/collectives``): a fixed-order collective, no atomics across
@@ -28,6 +32,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models import nn
 from repro_torch.obs.trace import span
 
@@ -36,10 +41,13 @@ def moe_init(cfg, dtype, generator: torch.Generator, device):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     tn = lambda shape, s, dt: nn.truncnorm(shape, s, dt, generator, device)
-    return {"router": tn((d, E), s_in, torch.float32),
-            "wi_gate": tn((E, d, f), s_in, dtype),
-            "wi_up": tn((E, d, f), s_in, dtype),
-            "wo": tn((E, f, d), s_out, dtype)}
+    p = {"router": tn((d, E), s_in, torch.float32),
+         "wi_gate": tn((E, d, f), s_in, dtype),
+         "wi_up": tn((E, d, f), s_in, dtype),
+         "wo": tn((E, f, d), s_out, dtype)}
+    if cfg.shared_d_ff:
+        p["shared"] = L.mlp_init(d, cfg.shared_d_ff, dtype, generator, device)
+    return p
 
 
 def _capacity(T: int, k: int, E: int, factor: float) -> int:
@@ -149,7 +157,11 @@ def moe_apply(p, x, cfg, rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
       outside the reference's region), and the outputs are gathered back.
     """
     with span("model.moe"):
-        return _moe_apply(p, x, cfg, rules)
+        y, aux = _moe_apply(p, x, cfg, rules)
+        if "shared" in p:
+            with span("model.moe.shared"):
+                y = y + L.swiglu(p["shared"], x)
+        return y, aux
 
 
 def _moe_apply(p, x, cfg, rules):
@@ -157,6 +169,9 @@ def _moe_apply(p, x, cfg, rules):
     from repro_torch.dist import ctx
     from repro_torch.dist.sharding import P, reshard
     rules = ctx.current_rules() if rules is None else rules
+    if rules is not None and "shared" in p:
+        raise NotImplementedError("the shared expert runs on one device "
+                                  "only")
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     if rules is None:

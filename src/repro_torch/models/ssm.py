@@ -4,8 +4,10 @@
 Prefill runs the SSD chunked algorithm (arXiv:2405.21060): within a chunk
 of length Q everything is dense products; across chunks a small recurrent
 state h [B,G,Hg,P,N] is carried by a Python loop over the chunks (the
-reference's ``lax.scan``).  Decode is the O(1)-per-token recurrence.  The
-in-projection is split into z / x / BC / dt matrices, as in the reference.
+reference's ``lax.scan``).  Decode is the O(1)-per-token recurrence:
+``mamba_decode_step`` returns the new state, ``mamba_decode_step_``
+writes it into the state it is given, in place, leaving the lanes it is
+told to keep as they were.  The in-projection is split into z / x / BC / dt matrices, as in the reference.
 
 On a mesh the decode can run on a head shard of the inner dimension
 (``tp_axis``), completing the gated norm and the out projection with
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import collectives as C
 from repro_torch.models import nn
+from repro_torch.obs.trace import span
 
 
 class MambaState(NamedTuple):
@@ -83,18 +86,20 @@ def _causal_conv(x, w, b, tail):
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
     """SSD scan.  x [B,S,G,Hg,P]; dt [B,S,G,Hg] (softplus'd); A [G,Hg] (<0);
     Bm/Cm [B,S,G,N]; D [G,Hg].  Returns (y [B,S,G,Hg,P], h_fin
-    [B,G,Hg,P,N])."""
+    [B,G,Hg,P,N]).  A length that is no multiple of the chunk ends in a
+    shorter chunk."""
     Bsz, S, G, Hg, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
-    assert S % Q == 0, (S, Q)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
     h = h0 if h0 is not None else torch.zeros(
         (Bsz, G, Hg, P, N), dtype=torch.float32, device=x.device)
     ys = []
-    for c in range(S // Q):
-        sl = slice(c * Q, (c + 1) * Q)
+    for c in range(-(-S // Q)):
+        sl = slice(c * Q, min((c + 1) * Q, S))
+        if sl.stop - sl.start < Q:        # a shorter last chunk
+            causal = causal[:sl.stop - sl.start, :sl.stop - sl.start]
         xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
         dA = dtc * A[None, None]                        # [B,Q,G,Hg]
         A_cum = torch.cumsum(dA, dim=1)
@@ -119,7 +124,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
     return torch.cat(ys, dim=1), h
 
 
-def _gate_norm_out(p, y, z, x_dtype, *, tp_axis=None, di_full=None):
+def _gate_norm_out(p, y, z, x_dtype, *, tp_axis=None, di_full=None,
+                   eps: float = 1e-6):
     """Mamba2 gated RMSNorm + out projection.  y, z [B,S,di].
 
     With ``tp_axis``, y/z/norm/w_out carry this rank's ``di`` shard: the
@@ -133,7 +139,7 @@ def _gate_norm_out(p, y, z, x_dtype, *, tp_axis=None, di_full=None):
         var = (y * y).mean(dim=-1, keepdim=True)
     else:
         var = C.psum((y * y).sum(dim=-1, keepdim=True), tp_axis) / di_full
-    y = (y * torch.rsqrt(var + 1e-6)).to(x_dtype) * p["norm"]
+    y = (y * torch.rsqrt(var + eps)).to(x_dtype) * p["norm"]
     if tp_axis is None:
         return y @ p["w_out"]
     out = y.float() @ p["w_out"].float()
@@ -169,7 +175,8 @@ def mamba_forward(p, x, cfg, *, state: Optional[MambaState] = None,
     y, h_fin = ssd_chunked(x_ssm, dtp, A, Bm, Cm, p["D"].reshape(G, Hg),
                            chunk=cfg.ssm_chunk,
                            h0=state.h if state is not None else None)
-    out = _gate_norm_out(p, y.reshape(Bsz, S, di).float(), z, x.dtype)
+    out = _gate_norm_out(p, y.reshape(Bsz, S, di).float(), z, x.dtype,
+                         eps=cfg.rms_norm_eps)
     if return_state:
         return out, MambaState(h=h_fin, conv_x=new_tail_x,
                                conv_bc=new_tail_bc)
@@ -214,8 +221,60 @@ def mamba_decode_step(p, x, cfg, state: MambaState, *,
     # (ssd_chunked casts y), so decode tracks forward closely
     y = y.to(x.dtype).float()
     out = _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
-                         tp_axis=tp_axis, di_full=cfg.d_inner)
+                         tp_axis=tp_axis, di_full=cfg.d_inner,
+                         eps=cfg.rms_norm_eps)
     return out, MambaState(h=h_new, conv_x=new_tail_x, conv_bc=new_tail_bc)
+
+
+def mamba_decode_step_(p, x, cfg, state: MambaState, keep) -> torch.Tensor:
+    """One-token decode on one device that writes the layer's new state
+    into ``state`` (views of one layer of the stacked state) in place.
+    x [B,1,d] -> [B,1,d].  A lane whose ``keep`` [B] is False keeps its
+    state bit for bit: its conv tails are written back unchanged, and its
+    recurrence runs with ``dA = 1`` and an increment of ``-0.0`` (the
+    exact identity of IEEE addition, signed zeros included); its output
+    is still the advanced state's, rebuilt from the small tensors.  For
+    the other lanes the arithmetic is ``mamba_decode_step``'s, op for op,
+    so the state and the output take the same bits."""
+    Bsz = x.shape[0]
+    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    di = p["w_x"].shape[1]
+    Hg = p["w_dt"].shape[1] // G
+    with span("model.mamba.in_proj"):
+        z, xs, bc, dt = _in_proj(p, x)
+    with span("model.mamba.conv"):
+        xs, tail_x = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"],
+                                  state.conv_x)
+        bc, tail_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
+                                   state.conv_bc)
+        k3 = keep[:, None, None]
+        state.conv_x.copy_(torch.where(k3, tail_x, state.conv_x))
+        state.conv_bc.copy_(torch.where(k3, tail_bc, state.conv_bc))
+    with span("model.mamba.state"):
+        x_ssm = xs[:, 0].reshape(Bsz, G, Hg, P)
+        Bm = bc[:, 0, :G * N].reshape(Bsz, G, N)
+        Cm = bc[:, 0, G * N:].reshape(Bsz, G, N)
+        dtp = _softplus(dt[:, 0].float() + p["dt_bias"][None]).reshape(
+            Bsz, G, Hg)
+        A = -torch.exp(p["A_log"]).reshape(G, Hg)
+        k4 = keep[:, None, None, None]
+        dA = torch.exp(dtp * A[None])                       # [B,G,Hg]
+        xdt = x_ssm.float() * dtp[..., None]
+        h = state.h
+        h.mul_(torch.where(k3, dA, 1.0)[..., None, None]).add_(
+            torch.einsum("bgn,bghp->bghpn", torch.where(k3, Bm.float(), 1.0),
+                         torch.where(k4, xdt, -0.0)))
+        y = torch.einsum("bgn,bghpn->bghp", Cm.float(), h)
+        # a frozen lane's output as if its state had advanced, C.h' =
+        # dA (C.h) + (C.B) xdt, from the small tensors alone
+        cb = torch.einsum("bgn,bgn->bg", Cm.float(), Bm.float())
+        y = torch.where(k4, y, y * dA[..., None]
+                        + cb[:, :, None, None] * xdt)
+        y = y + x_ssm.float() * p["D"].reshape(G, Hg)[None, ..., None]
+        y = y.to(x.dtype).float()
+    with span("model.mamba.out"):
+        return _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
+                              eps=cfg.rms_norm_eps)
 
 
 def init_mamba_state(cfg, batch: int, dtype, device) -> MambaState:

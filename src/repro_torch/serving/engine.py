@@ -23,23 +23,32 @@ Each decode token the engine (``_serve_step_impl``):
 The other families follow the reference's branches: ``ssm`` (mamba2) has
 no page table and runs its mamba layers' one-token recurrence; ``hybrid``
 (zamba2) runs each group of mamba layers and then the shared attention
-block, each invocation over its own pool (K1 with ``fused_kernel``);
+block, each invocation over its own pool (K1 with ``fused_kernel``), or,
+with ``cfg.layer_types`` (granitemoehybrid, one device), each layer's
+mixer in order, a mamba layer or an attention layer over its own pool,
+each followed by the layer's FFN (``_typed_layers``);
 ``encdec`` (seamless) attends over its paged self-attention KV through the
 plain ``attend_local`` (the reference does not wire it to the fused
 kernel; ``fallback_report`` says so) and over the encoder's cross K/V
 (``prepare_encdec_state``).  A refused or inactive lane's mamba state is
-frozen (``_freeze_lanes``): the recurrence is not idempotent.
+frozen: the recurrence is not idempotent.
 
 ``make_serve_megastep`` runs K tokens with greedy sampling in one call (the
 reference's ``lax.scan`` becomes a Python loop), with the same teacher
 forcing (``forced``/``forced_mask``), abort latch and ``stop_len`` latch.
 K1 or its plain version is chosen by the wrapper from the tensors' device.
 
-In place: the KV pools, their int8 scales and the ring buffers in the
-state are updated in place by every step (a step writes one token per
-lane; a functional copy would cost the whole pool).  Table, block table,
-``ring_pos``, the mamba state and the other leaves are new tensors.  A
-caller that needs the state before a step keeps a ``clone_state`` of it.
+In place: the KV pools, their int8 scales, the ring buffers and, on one
+device, the mamba state are updated in place by every step (a step
+writes one token per lane; a functional copy would cost the whole pool,
+and the mamba state of a batch of long-lived lanes is as large).  Each
+mamba layer writes its new ``h`` and conv tails into its own slice of
+the stacked state, and freezes a refused or inactive lane inside that
+update (``ssm.mamba_decode_step_``); ``reset_lanes`` clears lanes in
+place too.  On a mesh the mamba state is new tensors each step, the
+frozen lanes' rows kept by ``_freeze_lanes``.  Table, block table,
+``ring_pos`` and the other leaves are new tensors.  A caller that needs
+the state before a step keeps a ``clone_state`` of it.
 
 On a device mesh (``rules``, ``serve_rules`` or ``serve_manual_rules``)
 the program runs SPMD: one process per rank (``launch/mesh.run_spmd``),
@@ -112,6 +121,9 @@ def _check_engine(cfg, rules) -> None:
     registry.check_supported(cfg)
     if rules is None:
         return
+    if cfg.layer_types:
+        raise ValueError(f"{cfg.name}: the layer_types stack decodes on one "
+                         f"device only (no mesh layout for it)")
     if C.current_mesh() is not rules.mesh:
         raise ValueError("the rules' mesh is not this process's bound mesh "
                          "(launch.mesh.make_mesh)")
@@ -246,6 +258,8 @@ def _n_attn_layers(cfg) -> Tuple[int, int]:
     """(paged/global attention layers, ring/local attention layers)."""
     if cfg.family == "ssm":
         return 0, 0
+    if cfg.layer_types:
+        return cfg.layer_types.count("attention"), 0
     if cfg.family == "hybrid":
         return HY.num_shared_invocations(cfg), 0
     if cfg.pattern_local:
@@ -270,7 +284,8 @@ def make_decode_state(cfg, B: int, S_max: int, *, rules=None,
     up to the mesh's rank count.  The page table, block table and pools
     exist only when the family has paged layers (not for ``ssm``); the ssm
     and hybrid families carry their mamba state stacked ``[L, B, ...]``
-    (``ssm``), encdec its cross K/V ``[L, B, S_src, kv, hd]`` with
+    (``ssm``; L counts the mamba layers of a ``layer_types`` stack),
+    encdec its cross K/V ``[L, B, S_src, kv, hd]`` with
     ``S_src = max(S_max // 8, 1)``.
 
     With ``rules`` this rank's pieces are built (the rules' specs of the
@@ -345,10 +360,11 @@ def make_decode_state(cfg, B: int, S_max: int, *, rules=None,
         keep_heads = _ssm_tp(cfg, rules)
         G, Hg = cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups
         W1 = cfg.conv_width - 1
+        n_mamba = HY.num_mamba_layers(cfg)
         shapes = ssm.MambaState(
-            h=(cfg.num_layers, B, G, Hg, cfg.ssm_head_dim, cfg.ssm_state),
-            conv_x=(cfg.num_layers, B, W1, cfg.d_inner),
-            conv_bc=(cfg.num_layers, B, W1, 2 * G * cfg.ssm_state))
+            h=(n_mamba, B, G, Hg, cfg.ssm_head_dim, cfg.ssm_state),
+            conv_x=(n_mamba, B, W1, cfg.d_inner),
+            conv_bc=(n_mamba, B, W1, 2 * G * cfg.ssm_state))
         dts = ssm.MambaState(torch.float32, dtype, dtype)
         ssm_ax = ssm.MambaState(*(
             ("layer",) + tuple(None if (a == "batch" and manual)
@@ -526,7 +542,8 @@ def lane_slice(leaf: torch.Tensor, dim: int, B: int) -> slice:
 def reset_lanes(state: Dict[str, Any], slots) -> Dict[str, Any]:
     """Reset the given lanes' per-lane state (mamba ``h`` and conv tails,
     gemma3's ring K/V to 0 and ``ring_pos`` to -1) to what a fresh
-    ``make_decode_state`` holds, on whichever lanes this rank holds."""
+    ``make_decode_state`` holds, on whichever lanes this rank holds.  The
+    mamba state and the rings are cleared in place."""
     B = state["pos"].shape[0]
     state = dict(state)
 
@@ -536,9 +553,8 @@ def reset_lanes(state: Dict[str, Any], slots) -> Dict[str, Any]:
         return to_card(idx, leaf.device, torch.int64)
 
     if "ssm" in state:
-        st = state["ssm"]
-        state["ssm"] = type(st)(*(t.index_fill(1, local(t, 1), 0)
-                                  for t in st))
+        for t in state["ssm"]:
+            t.index_fill_(1, local(t, 1), 0)
     if "ring_k" in state:
         idx = local(state["ring_k"], 1)
         # a Python number assigned to card memory is copied there first
@@ -570,14 +586,16 @@ def _rope_single(cfg, x, positions, mrope=None):
 def _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused):
     """The (o, m, l) partials of q [B, QH, hd] over this rank's pages:
     K1 on the rank-local raw block table, or the plain ``attend_local``
-    over the compacted pages."""
+    over the compacted pages, at ``cfg``'s softmax scale."""
     B, QH, hd = q.shape
     if fused:
         return fused_decode_kernel(q.contiguous(), pk, pv, pg.bt, positions,
-                                   scales=scales, partials=True)
+                                   scales=scales, partials=True,
+                                   scale=cfg.attn_scale)
     kv = pk.shape[2]
     return paged.attend_local(q.reshape(B, kv, QH // kv, hd), pk, pv, pg.lp,
-                              positions, pg.page_size, scales=scales)
+                              positions, pg.page_size, scales=scales,
+                              scale=cfg.attn_scale)
 
 
 class _Pages:
@@ -594,10 +612,10 @@ def _paged_attn(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
                 mrope, fused, *, gather_heads=False):
     """A paged layer: q/k/v (all-gathered over ``model`` when
     ``gather_heads`` and the weights are head-sharded: the gspmd step),
-    RoPE, the token's K/V written into this rank's pages, the partials
-    over them, merged across the page axes, then the out projection —
-    row-parallel with a psum over ``model`` when the q heads are
-    sharded."""
+    RoPE (none with ``position_embedding == "nope"``), the token's K/V
+    written into this rank's pages, the partials over them, merged
+    across the page axes, then the out projection — row-parallel with a
+    psum over ``model`` when the q heads are sharded."""
     B = x.shape[0]
     q, k, v = L.attn_qkv_decode(ap, x[:, 0])
     q_sharded = gather_heads and q.shape[1] < cfg.n_q
@@ -606,8 +624,9 @@ def _paged_attn(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
     if gather_heads and k.shape[1] < cfg.n_kv:
         k = C.all_gather(k, "model", dim=1)
         v = C.all_gather(v, "model", dim=1)
-    q = _rope_single(cfg, q, positions, mrope)
-    k = _rope_single(cfg, k, positions, mrope)
+    if cfg.position_embedding != "nope":
+        q = _rope_single(cfg, q, positions, mrope)
+        k = _rope_single(cfg, k, positions, mrope)
     paged.write_token_kv(pk, pv, k, v, write_slot, positions, pg.chip,
                          pg.npr, pg.page_size, scales=scales, plan=pg.plan)
     o, m, l = _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused)
@@ -853,7 +872,7 @@ class _Ops:
         return _ring_attn(self.cfg, x, ap, rk, rv, ring_pos, positions)
 
     def ffn(self, lpp, x):
-        if self.cfg.family == "moe":
+        if "moe" in lpp:
             return MOE.moe_apply(lpp["moe"], x, self.cfg)[0]
         return L.mlp_apply(lpp["mlp"], x)
 
@@ -863,8 +882,12 @@ class _Ops:
     def cross(self, cp, x, ck, cv):
         return _cross_attn_decode(self.cfg, x, cp, ck, cv)
 
-    def mamba(self, layers, states, x, lo, hi):
-        return HY.mamba_decode_chunk(self.cfg, layers, states, x, lo, hi)
+    def mamba(self, layers, states, x, lo, hi, keep):
+        """Mamba layers [lo, hi): (x', None), the layers' states updated in
+        place with the lanes outside ``keep`` frozen; the mesh layouts
+        return (x', the layers' new states) for ``_freeze_ssm``."""
+        return HY.mamba_decode_in_place(self.cfg, layers, states, x, lo, hi,
+                                        keep), None
 
     def logits(self, params, x):
         return lm._logits(self.cfg, params, x)
@@ -921,7 +944,7 @@ class _GspmdOps(_Ops):
         return C.psum(y, "model") if mp["wo"].shape[0] < self.cfg.d_ff \
             else y
 
-    def mamba(self, layers, states, x, lo, hi):
+    def mamba(self, layers, states, x, lo, hi, keep):
         """Mamba layers [lo, hi) on this rank's lanes (``data``) and, when
         head-sharded, its heads (psums over ``model`` inside); the layers'
         outputs are all-gathered over the lanes so x stays replicated."""
@@ -984,7 +1007,7 @@ class _ManualOps(_Ops):
     def mlp(self, mp, x):
         return TP.mlp_decode_manual(mp, x)
 
-    def mamba(self, layers, states, x, lo, hi):
+    def mamba(self, layers, states, x, lo, hi, keep):
         return HY.mamba_decode_chunk(self.cfg, layers, states, x, lo, hi,
                                      tp_axis=self.ssm_axis)
 
@@ -1150,12 +1173,13 @@ def _page_ops(cfg, state, positions, active, ops, *, S_max, page_size):
 
 
 def _freeze_lanes(new, old, act):
-    """Per-lane freeze of refused or inactive lanes: the leaves are
-    ``[L, B, ...]`` stacked per-layer state (``act`` for the lanes they
-    hold).  A refused token must leave no trace — the SSM recurrence is
-    not idempotent under re-issue (unlike the KV and ring writes, which
-    rewrite the same slot with the same value) — so the engine keeps such
-    lanes' old rows."""
+    """Per-lane freeze of refused or inactive lanes on a mesh rank's new
+    mamba state: the leaves are ``[L, B, ...]`` stacked per-layer state
+    (``act`` for the lanes they hold).  A refused token must leave no
+    trace — the SSM recurrence is not idempotent under re-issue (unlike
+    the KV and ring writes, which rewrite the same slot with the same
+    value) — so the engine keeps such lanes' old rows.  One device
+    freezes inside each layer's in-place update instead."""
     def sel(n, o):
         return torch.where(act.reshape((1, -1) + (1,) * (n.dim() - 2)), n, o)
     return type(new)(*(sel(n, o) for n, o in zip(new, old)))
@@ -1200,25 +1224,49 @@ def _attention_layers(cfg, params, state, x, positions, mrope, attn, ops):
     return x, ring_pos
 
 
-def _hybrid_layers(cfg, params, state, x, attn, ops):
+def _hybrid_layers(cfg, params, state, x, attn, ops, keep):
     """zamba2: each group of ``shared_attn_every`` mamba layers, then the
     shared block over its own pool (invocation g writes pool g), then the
-    trailing mamba layers.  Returns (x, the mamba state of every layer)."""
+    trailing mamba layers.  Returns (x, the mamba state of every layer,
+    or None when it was updated in place)."""
     every = cfg.shared_attn_every
     n_inv = HY.num_shared_invocations(cfg)
     sp = params["shared"]
     chunks = []
     for g in range(n_inv):
         x, s2 = ops.mamba(params["layers"], state["ssm"], x, g * every,
-                          (g + 1) * every)
+                          (g + 1) * every, keep)
         chunks.append(s2)
         x = x + attn(nn.rmsnorm(sp["ln1"], x), sp["attn"], g, None)
         x = x + ops.mlp(sp["mlp"], nn.rmsnorm(sp["ln2"], x))
     if cfg.num_layers > n_inv * every:
         x, s2 = ops.mamba(params["layers"], state["ssm"], x, n_inv * every,
-                          cfg.num_layers)
+                          cfg.num_layers, keep)
         chunks.append(s2)
+    if chunks[0] is None:
+        return x, None
     return x, ssm.MambaState(*(torch.cat(ts) for ts in zip(*chunks)))
+
+
+def _typed_layers(cfg, params, state, x, attn, ops, keep):
+    """A ``layer_types`` stack on one device: each layer's mixer (a mamba
+    layer, its state updated in place, or an attention layer over its own
+    pool: attention layer j writes pool j), then the layer's FFN, each
+    block's output scaled by ``residual_multiplier``."""
+    eps = cfg.rms_norm_eps
+    for i, (kind, j) in enumerate(HY.layer_kinds(cfg)):
+        with span("model.layer"):
+            if kind == "mamba":
+                x, _ = ops.mamba(params["mamba"], state["ssm"], x, j, j + 1,
+                                 keep)
+            else:
+                ap = nn.layer_slice(params["attn"], j)
+                x = x + HY.residual(cfg, attn(nn.rmsnorm(ap["ln"], x, eps),
+                                              ap["attn"], j, None))
+            fp = nn.layer_slice(params["ffn"], i)
+            x = x + HY.residual(cfg, ops.ffn(fp, nn.rmsnorm(fp["ln"], x,
+                                                            eps)))
+    return x
 
 
 def _encdec_layers(cfg, params, state, x, attn, ops):
@@ -1238,6 +1286,8 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
                      S_max, page_size, rules=None):
     ops = _ops(cfg, rules)
     x = ops.embed(params, tokens)                     # [B,1,d]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     new_state = dict(state)
     act = state["active"] & ~state["aborted"]
 
@@ -1245,8 +1295,9 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
         # attention-free: no page table, nothing refused
         aborts = torch.zeros_like(act)
         x, ssm2 = ops.mamba(params["layers"], state["ssm"], x, 0,
-                            cfg.num_layers)
-        new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"], act)
+                            cfg.num_layers, act)
+        if ssm2 is not None:
+            new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"], act)
     else:
         # encdec's self attention takes the plain attend_local, as in the
         # reference (_fused_kernel_reason)
@@ -1264,11 +1315,16 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
                             pg, write_slot, positions, mrope_j)
 
         if cfg.family == "hybrid":
-            x, ssm2 = _hybrid_layers(cfg, params, state, x, attn, ops)
             # a lane refused THIS step re-issues its token after the
             # rebuild: its recurrent state must not advance either
-            new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"],
-                                           act & ~aborts)
+            keep = act & ~aborts
+            if cfg.layer_types:
+                x = _typed_layers(cfg, params, state, x, attn, ops, keep)
+            else:
+                x, ssm2 = _hybrid_layers(cfg, params, state, x, attn, ops,
+                                         keep)
+                if ssm2 is not None:
+                    new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"], keep)
         elif cfg.family == "encdec":
             x = _encdec_layers(cfg, params, state, x, attn, ops)
         else:
@@ -1277,7 +1333,7 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
             if ring_pos is not None:
                 new_state["ring_pos"] = ring_pos
 
-    x = nn.rmsnorm(params["final_norm"], x)
+    x = nn.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
     logits = ops.logits(params, x)
     # inactive lanes stay frozen; aborted lanes refuse the token (pos not
     # advanced, no KV written — the caller must evict or rebuild)

@@ -152,16 +152,17 @@ def write_token_kv(pool_k_l, pool_v_l, k_new, v_new, write_slot, positions,
 
 
 def attend_local(q_all, pool_k_l, pool_v_l, lp: LocalPages, positions,
-                 page_size: int, scales=None
+                 page_size: int, scales=None, scale=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Partial attention over the compacted pages.
 
-    q_all [B, n_kv, G, hd]; pools [npr, psize, n_kv, hd]; positions [B].
+    q_all [B, n_kv, G, hd]; pools [npr, psize, n_kv, hd]; positions [B];
+    ``scale`` the softmax scale (None: 1/sqrt(hd)).
     Returns per-sequence partials (o [B,kv,G,hd] f32, m [B,kv,G],
     l [B,kv,G])."""
     B = q_all.shape[0]
     _, psize, n_kv, hd = pool_k_l.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     rows = lp.rows.to(torch.int64)
 
     k_loc = pool_k_l[rows]                            # [CAP, psize, kv, hd]
