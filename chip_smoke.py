@@ -78,6 +78,13 @@ order, each phase printing one JSON line:
                for K3 its lane count, the device ops one call launches
                (counted under ``torch.profiler``: 1 for int64 keys), cold
                times, the probe phase's numbers and the robinhood table's;
+               the mamba state kernel at one granite-4.0-h-small mamba
+               layer at 256 lanes (1.07 GB of float32 ``h``), first held
+               to its plain version with every other lane frozen (``h``
+               bit for bit, ``y`` within 1e-6 of its sum's scale), then
+               timed beside its byte bound, its plain version and a copy
+               of ``h``'s size (and, after phase ``families``, the same
+               check and times at zamba2's and mamba2's peak states);
 9. families  — phase ``serve``'s machinery (the fused run in lockstep with
                the plain one, tables equal and K1 == the K2 composition
                every round, the rebuild with K3) for the other model
@@ -107,15 +114,18 @@ order, each phase printing one JSON line:
                           D 64), depth cut 38 -> 14 for time (2 of the 6
                           groups and the 2-layer tail), the serve
                           traffic, so re-seated lanes have their mamba
-                          state reset; one lane's tokens near position
-                          200 replayed through the engine in float32 and
+                          state reset; the mamba state kernel once a
+                          mamba layer and token step; one lane's tokens
+                          near position 200 replayed through the engine
+                          in float32 (the kernel on float32 activations) and
                           held to the float32 ``hybrid.forward`` (the
                           bf16 state's distance printed beside it);
                ``mamba2`` mamba2-2.7b at full width (d 2560, d_inner 5120,
                           80 heads of 64, N 128), depth cut 64 -> 16 for
                           time; no page table, so no plain twin and no
-                          kernel launch; the serve traffic, the float32
-                          replay against ``ssm_lm.forward``, and the first
+                          attention kernel; the mamba state kernel once
+                          a layer and token step; the serve traffic, the
+                          float32 replay against ``ssm_lm.forward``, and the first
                           request seated on a re-seated lane served again
                           alone in a fresh batcher: the same tokens;
                ``seamless`` seamless-m4t-large-v2 at full width and depth
@@ -259,10 +269,14 @@ order, each phase printing one JSON line:
 Launch counts are zeroed just before each serve run and read after its
 rebuild: K1 must have launched once per paged layer per token step, K2
 never (the engine's attention is K1) and K3 once (the rebuild) for linear
-and robinhood, never for hopscotch; the linear run is the main path of the
+and robinhood, never for hopscotch; the mamba state kernel once per mamba
+layer per token step (none on the main path, whose model has no mamba
+layer); the linear run is the main path of the
 kernels line, ``launches_by_strategy`` holds all three and
-``launches_by_family`` the families' (mamba2 launches none, seamless only
-K3's rebuild), ``launches_by_mesh`` each kernel's per rank on each mesh
+``launches_by_family`` the families' (mamba2 launches no attention kernel,
+seamless only K3's rebuild; the mamba state kernel runs in zamba2's and
+mamba2's, and the plain twin's launches are the checks'),
+``launches_by_mesh`` each kernel's per rank on each mesh
 layout's serve and rebuild (counted in each rank from just before the
 serve to the end of the rebuild), ``launches_by_phase``
 the simulator's, the train phase's and mesh_train's (none: no such path
@@ -495,8 +509,9 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.fused_decode import fused_decode_kernel
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.probe import probe_lookup_kernel
+    from repro_torch.kernels.mamba_state import mamba_state_kernel
     return {"K1": fused_decode_kernel, "K2": paged_attention_kernel,
-            "K3": probe_lookup_kernel}
+            "K3": probe_lookup_kernel, "MS": mamba_state_kernel}
 
 
 @contextlib.contextmanager
@@ -1347,7 +1362,8 @@ def phase_serve(cfg, params, checks, traffic=SERVE_TRAFFIC):
         rounds += 1
         if plain is not None:
             syncs = SYNC_STATS["host_syncs"]
-            plain.step_round()
+            with uncounted(checks):               # the mamba state kernel's
+                plain.step_round()
             SYNC_STATS["host_syncs"] = syncs      # count the fused run only
             if not tables_equal(fused.state, plain.state):
                 raise AssertionError(f"round {rounds}: fused and plain "
@@ -1658,6 +1674,96 @@ def long_context():
                    "bound_share": b2 / k2}}
 
 
+def mamba_state_inputs(h, dtype, seed, keep):
+    """The mamba state kernel's arguments around the state ``h``
+    [B, G, Hg, P, N]: ``dtp``, ``x``, ``B``, ``C`` and ``D`` drawn from
+    ``seed``, ``dA`` as the model makes it, activations in ``dtype``."""
+    import torch
+    import torch.nn.functional as F
+    B, G, Hg, P, N = h.shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dtp = F.softplus(torch.randn((B, G, Hg), generator=g, device=DEV))
+    A = -torch.linspace(1.0, 16.0, G * Hg, device=DEV).reshape(G, Hg)
+    dA = torch.exp(dtp * A[None])
+    xs = torch.randn((B, G * Hg * P), generator=g, device=DEV).to(dtype)
+    bc = torch.randn((B, 2 * G * N), generator=g, device=DEV).to(dtype)
+    D = torch.rand(G * Hg, generator=g, device=DEV) + 0.5
+    return h, dA, dtp, xs, bc, D, keep
+
+
+def check_mamba_state(args) -> float:
+    """The kernel on clones of ``args`` against ``mamba_state_plain`` on
+    other clones: ``h`` bit for bit and the frozen lanes' rows untouched;
+    ``y`` within 1e-6 of ``sum |C h'| + |x D|`` (a frozen lane's: of its
+    rebuilt terms), and through bf16 within one bf16 step more: only the
+    order of the ``C.h`` sum differs.  Returns max |y - plain| / scale."""
+    import torch
+    from repro_torch.kernels.mamba_state import (mamba_state_kernel,
+                                                 mamba_state_plain)
+    a = [t.clone() for t in args]
+    b = [t.clone() for t in args]
+    yk = mamba_state_kernel(*a)
+    yp = mamba_state_plain(*b)
+    frozen = ~args[6]
+    bits = lambda t: t.view(torch.int32)
+    if not torch.equal(bits(a[0]), bits(b[0])) or not torch.equal(
+            bits(a[0][frozen]), bits(args[0][frozen])):
+        raise AssertionError(f"mamba state kernel: h differs from the "
+                             f"plain version's at {tuple(a[0].shape)}")
+    h, dA, dtp, xs, bc, D, keep = b
+    B, G, Hg, P, N = h.shape
+    Bm = bc[:, :G * N].float().abs().reshape(B, G, 1, 1, N)
+    Cm = bc[:, G * N:].float().abs().reshape(B, G, 1, 1, N)
+    x = xs.float().reshape(B, G, Hg, P)
+    ch = (Cm * h.abs()).sum(-1)
+    rebuilt = dA[..., None] * ch + (Cm * Bm).sum(-1) \
+        * (x * dtp[..., None]).abs()
+    scale = (torch.where(keep[:, None, None, None], ch, rebuilt)
+             + (x * D.reshape(G, Hg, 1)).abs()).reshape(B, -1)
+    err = (yk - yp).abs()
+    bound = 1e-6 * scale
+    if xs.dtype == torch.bfloat16:
+        bound = bound + yp.abs() * 2.0 ** -7
+    rel = float((err / scale.clamp_min(1e-30)).max())
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"mamba state kernel: y off the plain "
+                             f"version's by {rel} of the sum's scale at "
+                             f"{tuple(h.shape)}, {xs.dtype}")
+    return rel
+
+
+def mamba_state_at(state, run, dtype) -> dict:
+    """The mamba state kernel at a family run's peak state: the first
+    mamba layer's ``h`` with the lanes the state has live kept and every
+    other lane frozen, held to its plain version in float32 and in the
+    run's activation dtype (``check_mamba_state``; the float32 error
+    reported), and timed beside its byte bound and the plain version,
+    warm and with L2 cold: at 8 lanes ``h`` (8-21 MB) fits the 50 MB L2,
+    so warm replays can beat the device-memory bound."""
+    import torch
+    from repro_torch.kernels.mamba_state import (mamba_state_kernel,
+                                                 mamba_state_plain,
+                                                 state_bytes)
+    h = state["ssm"].h[0]
+    keep = state["active"].clone()
+    keep[1::2] = False
+    err = check_mamba_state(mamba_state_inputs(h, torch.float32,
+                                               SEED + 17, keep))
+    check_mamba_state(mamba_state_inputs(h, dtype, SEED + 17, keep))
+    work = [t.clone() for t in mamba_state_inputs(h, dtype, SEED + 17,
+                                                  keep)]
+    ms = graph_ms(lambda: mamba_state_kernel(*work), 20)
+    cold = cold_ms(lambda: mamba_state_kernel(*work), 20)
+    bound = state_bytes(h) / HBM_BYTES_PER_S * 1e3
+    B, G, Hg, P, N = h.shape
+    return {"run": run, "B": B, "G": G, "Hg": Hg, "P": P, "N": N,
+            "dtype": str(dtype), "kept": int(keep.sum()), "ms": ms,
+            "plain_ms": graph_ms(lambda: mamba_state_plain(*work), 5),
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / ms, "cold_ms": cold,
+            "cold_bound_share": bound / cold, "max_rel_err": err}
+
+
 def k1_at_state(cfg, state, run):
     """K1 at a family's serve shape: the first paged layer of its state
     with the most live pages and a random query of its head layout.
@@ -1926,7 +2032,7 @@ def phase_families(main_cfg, main_params, checks):
     from repro_torch.models.registry import get_model
     from repro_torch.serving import engine as EG
     wrappers = kernel_wrappers()
-    by_family, shapes = {}, []
+    by_family, shapes, ms_shapes = {}, [], []
     for run, arch, layers, over, traffic in FAMILIES:
         if arch == ARCH:
             cfg, params = dataclasses.replace(main_cfg, **over), main_params
@@ -1949,10 +2055,14 @@ def phase_families(main_cfg, main_params, checks):
             phase_rebuild(res["snap"], cfg)
         launches = {k: w.launches for k, w in wrappers.items()}
         # K1 runs every paged layer but encdec's (the reference's plain
-        # attend_local there); K3 serves the rebuild of a paged state
+        # attend_local there); K3 serves the rebuild of a paged state; the
+        # mamba state kernel every mamba layer (the plain twin's apart)
         k1_layers = 0 if cfg.family == "encdec" else n_paged
+        n_mamba = (res["peak"]["ssm"].h.shape[0] if "ssm" in res["peak"]
+                   else 0)
         expected = {"K1": k1_layers * MEGASTEP * res["megasteps"], "K2": 0,
-                    "K3": 1 if n_paged else 0}
+                    "K3": 1 if n_paged else 0,
+                    "MS": n_mamba * MEGASTEP * res["megasteps"]}
         if launches != expected:
             raise AssertionError(f"{run} path launches {launches}, "
                                  f"expected {expected}")
@@ -1994,11 +2104,14 @@ def phase_families(main_cfg, main_params, checks):
                                                        traffic)
             if k1_layers:
                 shapes.append(k1_at_state(cfg, res["peak"], run))
+            if n_mamba:
+                ms_shapes.append(mamba_state_at(res["peak"], run,
+                                                cfg.activation_dtype()))
         out["phase_seconds"] = time.perf_counter() - t0
         emit("families", run=run, launches=launches, **out)
         del res, params
         torch.cuda.empty_cache()
-    return by_family, shapes
+    return by_family, shapes, ms_shapes
 
 
 # ---------------------------------------------------------------------------
@@ -2430,7 +2543,7 @@ def mesh_rank(rank: int, ref: dict) -> dict:
         launches = {k: w.launches for k, w in wrappers.items()}
         n_paged, _ = EG._n_attn_layers(cfg)
         want = {"K1": n_paged * MEGASTEP * stats["megasteps"], "K2": 0,
-                "K3": 1}
+                "K3": 1, "MS": 0}
         if launches != want:
             raise AssertionError(f"{table}: launches {launches}, expected "
                                  f"{want}")
@@ -3448,6 +3561,56 @@ def phase_train() -> dict:
     return launches
 
 
+def mamba_state_entry(errs, by_strategy, checks) -> dict:
+    """The mamba state kernel's kernels-line entry at one
+    granite-4.0-h-small mamba layer at its decode cell's 256 lanes (G 1,
+    Hg 128, P 64, N 128, bf16 activations; 1.07 GB of float32 ``h``):
+    held to its plain version with every other lane frozen (in float32
+    activations, whose error is reported, and in bf16), then, every lane
+    kept, timed beside its byte bound (``h`` read and written once,
+    the bytes from ``KERNEL_STATS["ssm_state_bytes"]``), the plain
+    version, a copy of ``h``'s size (the card's practical stream rate)
+    and its eager per-call time."""
+    import torch
+    from repro_torch.kernels import stats as KS
+    from repro_torch.kernels.mamba_state import (mamba_state_kernel,
+                                                 mamba_state_plain)
+    B, G, Hg, P, N = 256, 1, 128, 64, 128
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    h = torch.randn((B, G, Hg, P, N), generator=g, device=DEV)
+    mixed = torch.ones(B, dtype=torch.bool, device=DEV)
+    mixed[1::2] = False
+    errs["MS"] = max(errs["MS"], check_mamba_state(mamba_state_inputs(
+        h, torch.float32, SEED + 19, mixed)))
+    check_mamba_state(mamba_state_inputs(h, torch.bfloat16, SEED + 19,
+                                         mixed))
+    args = mamba_state_inputs(h, torch.bfloat16, SEED + 19,
+                              torch.ones_like(mixed))
+    with KS.kernel_stats_scope() as stats:
+        mamba_state_kernel(*args)
+        nbytes = stats["ssm_state_bytes"]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = graph_ms(lambda: mamba_state_kernel(*args), 20)
+    other = torch.empty_like(h)
+    copy_ms = graph_ms(lambda: other.copy_(h), 20)
+    del other
+    launches = by_strategy["linear"]
+    return {"name": "mamba_state", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_state.cu",
+            "replaces": None,
+            "launches": launches["MS"],
+            "launches_by_strategy": {s: n["MS"]
+                                     for s, n in by_strategy.items()},
+            "check_launches": checks["MS"],
+            "B": B, "G": G, "Hg": Hg, "P": P, "N": N, "bytes": nbytes,
+            "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / ms,
+            "plain_ms": graph_ms(lambda: mamba_state_plain(*args), 4),
+            "copy_ms": copy_ms, "copy_bound_share": bound / copy_ms,
+            "library_ms": None,
+            "eager_ms": cuda_ms(lambda: mamba_state_kernel(*args), 20)}
+
+
 def kernel_entries(snap, rebuilt, errs, by_strategy, checks, probe_phase,
                    robinhood_k3):
     import torch
@@ -3554,6 +3717,7 @@ def kernel_entries(snap, rebuilt, errs, by_strategy, checks, probe_phase,
          "plain_ms": cuda_ms(lambda: BT.find_batch(table, keys), 20),
          "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": None,
          "eager_ms": cuda_ms(lambda: probe_lookup_kernel(table, keys), 200)},
+        mamba_state_entry(errs, by_strategy, checks),
     ]
 
 
@@ -3591,7 +3755,7 @@ def main() -> int:
          library=os.path.relpath(_build.BUILD_INFO["path"], ROOT),
          card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
-    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "MS": 0.0}
     phase_attention(errs)
     probe_phase, linear_fill = phase_probe(errs)
     robinhood_k3 = phase_strategies(errs, linear_fill)
@@ -3621,7 +3785,7 @@ def main() -> int:
         # the engine's decode attention is K1; K2 is only what K1 is held
         # to; K3 serves the rebuild of the linear-order strategies
         expected = {"K1": LAYERS * MEGASTEP * megasteps, "K2": 0,
-                    "K3": 0 if strategy == "hopscotch" else 1}
+                    "K3": 0 if strategy == "hopscotch" else 1, "MS": 0}
         if launches != expected:
             raise AssertionError(f"{strategy} path launches {launches}, "
                                  f"expected {expected}")
@@ -3635,19 +3799,25 @@ def main() -> int:
     kernels = kernel_entries(peak, rebuilt, errs, by_strategy, checks,
                              probe_phase, robinhood_k3)
     del peak, peak_tokens, rebuilt
-    by_family, k1_shapes = phase_families(cfg, params, checks)
+    by_family, k1_shapes, ms_shapes = phase_families(cfg, params, checks)
     kernels[0]["launches_by_family"] = {
         run: n["K1"] for run, n in by_family.items()}
     kernels[0]["family_shapes"] = k1_shapes
     errs["K1"] = max([errs["K1"]] + [e["max_abs_err"] for e in k1_shapes])
     kernels[0]["max_abs_err"] = errs["K1"]
+    kernels[3]["launches_by_family"] = {
+        run: n["MS"] for run, n in by_family.items()}
+    kernels[3]["family_shapes"] = ms_shapes
+    errs["MS"] = max([errs["MS"]] + [e["max_rel_err"] for e in ms_shapes])
+    kernels[3]["max_rel_err"] = errs["MS"]
+    kernels[3]["check_launches"] = checks["MS"]
     phase_sharded()
     phase_profile(cfg, params)
     del params
     torch.cuda.empty_cache()
     phase_collectives()
     mesh = phase_mesh()
-    for e, key in zip(kernels, ("K1", "K2", "K3")):
+    for e, key in zip(kernels, ("K1", "K2", "K3", "MS")):
         e["launches_by_mesh"] = {t: n[key]
                                  for t, n in mesh["launches"].items()}
     kernels[0]["mesh_shapes"] = mesh["rows"]
@@ -3657,7 +3827,7 @@ def main() -> int:
                 "mesh_train": phase_mesh_train()}
     for e in kernels:
         key = {"fused_decode": "K1", "paged_attention": "K2",
-               "probe_lookup": "K3"}[e["name"]]
+               "probe_lookup": "K3", "mamba_state": "MS"}[e["name"]]
         e["launches_by_phase"] = {ph: n[key] for ph, n in by_phase.items()}
     emit("done", seconds=time.time() - t0)
     print(card, flush=True)

@@ -1,5 +1,10 @@
 """Build and load the port's CUDA kernels.
 
+The sources: ``csrc/paged_decode.cu`` (K1 and K2, wrappers
+``kernels/fused_decode`` and ``kernels/paged_attention``),
+``csrc/probe.cu`` (K3, ``kernels/probe``) and ``csrc/mamba_state.cu``
+(the mamba state update of one decode token, ``kernels/mamba_state``).
+
 At first use, every ``repro_torch/csrc/*.cu`` is compiled for ``sm_90a``
 by its own ``nvcc`` process (all started together), and the objects are
 linked into one shared library with a plain C interface, loaded with
@@ -47,6 +52,8 @@ _SIGNATURES = {
                                + [_P] * 6,
     # table, m, keys, n, seed, a0, shift, found, slot, stream
     "probe_lookup_launch": [_P, _I, _P, _I, _P, _U, _I, _P, _P, _P],
+    # h, dA, dtp, xs, bc, D, keep, y, B, G, Hg, P, N, dtype, stream
+    "mamba_state_launch": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 

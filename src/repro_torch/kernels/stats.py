@@ -4,8 +4,9 @@ machine-independent counter, the kernel-layer twin of
 
 The wrappers account structurally: from the concrete block table and
 positions they compute how many bytes each call reads from device memory
-(pages actually fetched, slot-index traffic, scale sidecars).  A host-side
-replay, never a wall-clock measurement.  Every call of the port is eager,
+(pages actually fetched, slot-index traffic, scale sidecars); the mamba
+state kernel's from its shapes.  A host-side replay, never a wall-clock
+measurement.  Every call of the port is eager,
 so every call counts.
 """
 from __future__ import annotations
@@ -13,9 +14,12 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator
 
-#   probe_bytes — slot-index / block-table traffic
-#   attn_bytes  — K/V page payload (+ int8 scale sidecars)
-KERNEL_STATS = {"probe_bytes": 0, "attn_bytes": 0}
+#   probe_bytes     — slot-index / block-table traffic
+#   attn_bytes      — K/V page payload (+ int8 scale sidecars)
+#   ssm_state_bytes — the mamba state kernel's float32 h, read and written
+#                     once a call (from shapes alone); chip_smoke.py's
+#                     kernels line takes the kernel's byte bound from it
+KERNEL_STATS = {"probe_bytes": 0, "attn_bytes": 0, "ssm_state_bytes": 0}
 
 
 def kernel_stats_reset() -> None:

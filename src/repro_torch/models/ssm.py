@@ -6,7 +6,8 @@ of length Q everything is dense products; across chunks a small recurrent
 state h [B,G,Hg,P,N] is carried by a Python loop over the chunks (the
 reference's ``lax.scan``).  Decode is the O(1)-per-token recurrence:
 ``mamba_decode_step`` returns the new state, ``mamba_decode_step_``
-writes it into the state it is given, in place, leaving the lanes it is
+writes it into the state it is given, in place (on the card through one
+hand-written kernel, ``kernels/mamba_state``), leaving the lanes it is
 told to keep as they were.  The in-projection is split into z / x / BC / dt matrices, as in the reference.
 
 On a mesh the decode can run on a head shard of the inner dimension
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as C
+from repro_torch.kernels import mamba_state as MS
 from repro_torch.models import nn
 from repro_torch.obs.trace import span
 
@@ -235,9 +237,14 @@ def mamba_decode_step_(p, x, cfg, state: MambaState, keep) -> torch.Tensor:
     exact identity of IEEE addition, signed zeros included); its output
     is still the advanced state's, rebuilt from the small tensors.  For
     the other lanes the arithmetic is ``mamba_decode_step``'s, op for op,
-    so the state and the output take the same bits."""
+    so the state and the output take the same bits.
+
+    The recurrence and its read-out are one launch of the mamba state
+    kernel (``kernels/mamba_state``) on the card, which raises on shapes it
+    does not take, and its plain version, the same arithmetic in PyTorch
+    ops, off the card: ``h`` takes the same bits either way."""
     Bsz = x.shape[0]
-    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    G = cfg.ssm_groups
     di = p["w_x"].shape[1]
     Hg = p["w_dt"].shape[1] // G
     with span("model.mamba.in_proj"):
@@ -251,27 +258,13 @@ def mamba_decode_step_(p, x, cfg, state: MambaState, keep) -> torch.Tensor:
         state.conv_x.copy_(torch.where(k3, tail_x, state.conv_x))
         state.conv_bc.copy_(torch.where(k3, tail_bc, state.conv_bc))
     with span("model.mamba.state"):
-        x_ssm = xs[:, 0].reshape(Bsz, G, Hg, P)
-        Bm = bc[:, 0, :G * N].reshape(Bsz, G, N)
-        Cm = bc[:, 0, G * N:].reshape(Bsz, G, N)
         dtp = _softplus(dt[:, 0].float() + p["dt_bias"][None]).reshape(
             Bsz, G, Hg)
         A = -torch.exp(p["A_log"]).reshape(G, Hg)
-        k4 = keep[:, None, None, None]
         dA = torch.exp(dtp * A[None])                       # [B,G,Hg]
-        xdt = x_ssm.float() * dtp[..., None]
-        h = state.h
-        h.mul_(torch.where(k3, dA, 1.0)[..., None, None]).add_(
-            torch.einsum("bgn,bghp->bghpn", torch.where(k3, Bm.float(), 1.0),
-                         torch.where(k4, xdt, -0.0)))
-        y = torch.einsum("bgn,bghpn->bghp", Cm.float(), h)
-        # a frozen lane's output as if its state had advanced, C.h' =
-        # dA (C.h) + (C.B) xdt, from the small tensors alone
-        cb = torch.einsum("bgn,bgn->bg", Cm.float(), Bm.float())
-        y = torch.where(k4, y, y * dA[..., None]
-                        + cb[:, :, None, None] * xdt)
-        y = y + x_ssm.float() * p["D"].reshape(G, Hg)[None, ..., None]
-        y = y.to(x.dtype).float()
+        args = (state.h, dA, dtp, xs[:, 0], bc[:, 0], p["D"], keep)
+        y = (MS.mamba_state_kernel(*args) if state.h.is_cuda
+             else MS.mamba_state_plain(*args))
     with span("model.mamba.out"):
         return _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
                               eps=cfg.rms_norm_eps)
