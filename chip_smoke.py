@@ -226,7 +226,10 @@ order, each phase printing one JSON line:
                over model), zamba2 (one group of 6 mamba layers and the
                shared block, mamba head-sharded) and gemma3 (one 5:1
                superblock), each fed 40 seeded tokens: logits against
-               the one-device run, the megastep against single steps.
+               the one-device run, the megastep against single steps;
+               zamba2's mamba state kernel launched per rank once per
+               mamba layer per step, and held to its plain version at
+               the rank's head-sharded state (``h`` bit for bit).
                Then seamless under serve_rules at full width, depth 24 +
                24 cut to 4 + 4: the encoder's prefill over the ranks'
                weight shards (``prepare_encdec_state(rules=)``) and 40
@@ -2595,8 +2598,12 @@ def mesh_rank(rank: int, ref: dict) -> dict:
             raise AssertionError(f"{run}: {EG.fallback_report(cfg, rules)}")
         params = mesh_params(cfg, rules)
         with uncounted(checks):
+            ms0 = wrappers["MS"].launches
             logits, state, tok = forced_run(cfg, params, rules,
                                             MESH_FAMILY_STEPS)
+            fam = mesh_family_state(run, state,
+                                    wrappers["MS"].launches - ms0,
+                                    cfg.activation_dtype())
             live = torch.ones(BATCH, dtype=torch.bool)
             rel = rel_err_live(logits.cpu(), ref["families"][run], live)
             if not rel <= LOGITS_REL_TOL:
@@ -2604,7 +2611,7 @@ def mesh_rank(rank: int, ref: dict) -> dict:
                                      f"> {LOGITS_REL_TOL}")
             mesh_megastep_bits(cfg, params, rules, state, tok)
         fams[run] = dict(arch=arch, layers=layers, rel_err=rel,
-                         report=EG.fallback_report(cfg, rules))
+                         report=EG.fallback_report(cfg, rules), **fam)
         del params, state
         torch.cuda.empty_cache()
     out["families"] = fams
@@ -2637,6 +2644,31 @@ def mesh_rank(rank: int, ref: dict) -> dict:
     out["staged"] = C.COLLECTIVE_STATS["staged"]
     out["collectives"] = C.COLLECTIVE_STATS["calls"]
     return out
+
+
+def mesh_family_state(run: str, state, ms_launches: int, dtype) -> dict:
+    """A mesh family run's mamba state kernel: launched once per mamba
+    layer per token step on this rank (``MESH_FAMILY_STEPS`` single
+    steps), and at the rank's shape (its lanes and heads of the first
+    layer's ``h`` after the run, every other lane frozen) held to its
+    plain version in float32 and in the run's activation dtype
+    (``check_mamba_state``; the float32 error reported)."""
+    import torch
+    n_mamba = state["ssm"].h.shape[0] if "ssm" in state else 0
+    if ms_launches != n_mamba * MESH_FAMILY_STEPS:
+        raise AssertionError(f"{run}: {ms_launches} mamba state kernel "
+                             f"launches on the mesh, expected {n_mamba} "
+                             f"layers x {MESH_FAMILY_STEPS} steps")
+    if not n_mamba:
+        return {"ms_launches": 0}
+    h = state["ssm"].h[0]
+    keep = torch.ones(h.shape[0], dtype=torch.bool, device=h.device)
+    keep[1::2] = False
+    err = check_mamba_state(mamba_state_inputs(h, torch.float32,
+                                               SEED + 17, keep))
+    check_mamba_state(mamba_state_inputs(h, dtype, SEED + 17, keep))
+    return {"ms_launches": ms_launches, "ms_h_shape": list(h.shape),
+            "ms_max_rel_err": err}
 
 
 def rank_q_heads(cfg, rules) -> int:

@@ -95,21 +95,16 @@ def batch_spec(rules, batch: int) -> P:
 def _attn_manual(cfg, ap, ln, x, positions, window, mrope):
     """x [B_l,S,d] -> attention sublayer output (pre-residual) on this
     rank's head shard, row-parallel wo + psum over ``model``."""
-    xn = nn.rmsnorm(ln, x)
-    q, k, v = L.attn_qkv(ap, xn)
-    if mrope is not None and cfg.mrope_sections:
-        q = L.apply_mrope(q, mrope, cfg.mrope_sections, cfg.rope_theta)
-        k = L.apply_mrope(k, mrope, cfg.mrope_sections, cfg.rope_theta)
-    else:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.flash_attention(q, k, v, causal=True, window=window)
+    q, k, v = L.attn_qkv(ap, nn.norm(cfg, ln, x))
+    q, k = L.position_qk(cfg, q, k, positions, mrope)
+    o = L.flash_attention(q, k, v, causal=True, window=window,
+                          scale=cfg.attn_scale)
     return C.psum(L.attn_out(ap, o), "model")
 
 
-def _mlp_manual(mp, ln, x):
+def _mlp_manual(cfg, mp, ln, x):
     """SwiGLU MLP on a d_ff column shard, row-parallel wo + psum."""
-    return C.psum(L.mlp_apply(mp, nn.rmsnorm(ln, x)), "model")
+    return C.psum(L.mlp_apply(mp, nn.norm(cfg, ln, x)), "model")
 
 
 def block_apply_sharded(cfg, p, x, positions, *, causal: bool = True):
@@ -121,7 +116,7 @@ def block_apply_sharded(cfg, p, x, positions, *, causal: bool = True):
     sharded, the plain sublayer on what they left whole.  ``x`` is
     replicated.  The encdec encoder runs through it on a mesh."""
     ap = p["attn"]
-    h = L.self_attention(ap, nn.rmsnorm(p["ln1"], x), positions, cfg,
+    h = L.self_attention(ap, nn.norm(cfg, p["ln1"], x), positions, cfg,
                          causal=causal)
     hq, hkv = ap["wq"].shape[1], ap["wk"].shape[1]
     if hq < cfg.n_q:
@@ -130,11 +125,11 @@ def block_apply_sharded(cfg, p, x, positions, *, causal: bool = True):
                              f"heads to {hkv} of {cfg.n_kv}: the local "
                              f"groups do not line up")
         h = C.psum(h, "model")
-    x = x + h
-    y = L.mlp_apply(p["mlp"], nn.rmsnorm(p["ln2"], x))
+    x = x + nn.residual(cfg, h)
+    y = L.mlp_apply(p["mlp"], nn.norm(cfg, p["ln2"], x))
     if p["mlp"]["wo"].shape[0] < cfg.d_ff:
         y = C.psum(y, "model")
-    return x + y
+    return x + nn.residual(cfg, y)
 
 
 # ---------------------------------------------------------------------------
@@ -300,12 +295,13 @@ def attn_apply_tp(cfg, p, x, positions, *, window: int = 0,
     applies to an attention sublayer, see ``block_param_specs``)."""
     rules = ctx.current_rules()
     if not _manual_tp(cfg, rules, need_ff=False):
-        h = L.self_attention(p["attn"], nn.rmsnorm(p["ln1"], x), positions,
-                             cfg, window=window,
+        h = L.self_attention(p["attn"], nn.norm(cfg, p["ln1"], x),
+                             positions, cfg, window=window,
                              mrope_positions=mrope_positions)
-        return x + h
-    return x + _attn_manual(cfg, p["attn"], p["ln1"], x, positions, window,
-                            mrope_positions)
+    else:
+        h = _attn_manual(cfg, p["attn"], p["ln1"], x, positions, window,
+                         mrope_positions)
+    return x + nn.residual(cfg, h)
 
 
 def block_apply_tp(cfg, p, x, positions, *, window: int = 0,
@@ -317,6 +313,7 @@ def block_apply_tp(cfg, p, x, positions, *, window: int = 0,
     if not _manual_tp(cfg, rules, need_ff=True):
         return L.block_apply(p, x, positions, cfg, window=window,
                              mrope_positions=mrope_positions)
-    x = x + _attn_manual(cfg, p["attn"], p["ln1"], x, positions, window,
-                         mrope_positions)
-    return x + _mlp_manual(p["mlp"], p["ln2"], x)
+    h = _attn_manual(cfg, p["attn"], p["ln1"], x, positions, window,
+                     mrope_positions)
+    x = x + nn.residual(cfg, h)
+    return x + nn.residual(cfg, _mlp_manual(cfg, p["mlp"], p["ln2"], x))

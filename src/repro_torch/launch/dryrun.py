@@ -368,8 +368,7 @@ def decode_collectives(cfg, rules, B: int, S_max: int
             add("all_gather", all_axes, B // n_all * d * act)
 
     def mamba(lp, n_layers):
-        ssm_tp = (EG._ssm_tp(cfg, rules) if not manual
-                  else ops.ssm_axis is not None)
+        ssm_tp = ops.ssm_axis is not None
         Bl = state["ssm"].h.shape[1]
         for _ in range(n_layers):
             if ssm_tp:

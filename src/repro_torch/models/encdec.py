@@ -43,17 +43,18 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
 
 
 def _enc_layer(cfg, lp, x, positions):
-    x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
-                             positions, cfg, causal=False)
-    return x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+    return L.block_apply(lp, x, positions, cfg, causal=False)
 
 
 def _dec_layer(cfg, lp, x, positions, memory):
-    x = x + L.self_attention(lp["attn"], nn.rmsnorm(lp["ln1"], x),
-                             positions, cfg)
-    x = x + L.cross_attention(lp["cross"],
-                              nn.rmsnorm(lp["ln_cross"], x), memory)
-    return x + L.mlp_apply(lp["mlp"], nn.rmsnorm(lp["ln2"], x))
+    h = L.self_attention(lp["attn"], nn.norm(cfg, lp["ln1"], x), positions,
+                         cfg)
+    x = x + nn.residual(cfg, h)
+    h = L.cross_attention(lp["cross"], nn.norm(cfg, lp["ln_cross"], x),
+                          memory, scale=cfg.attn_scale)
+    x = x + nn.residual(cfg, h)
+    h = L.mlp_apply(lp["mlp"], nn.norm(cfg, lp["ln2"], x))
+    return x + nn.residual(cfg, h)
 
 
 def encode(cfg, params, src_embeds, *, remat: bool = False):
@@ -63,18 +64,18 @@ def encode(cfg, params, src_embeds, *, remat: bool = False):
     layer = nn.remat(_enc_layer, remat)
     for i in range(cfg.encoder_layers):
         x = layer(cfg, nn.layer_slice(params["encoder"], i), x, positions)
-    return nn.rmsnorm(params["enc_norm"], x)
+    return nn.norm(cfg, params["enc_norm"], x)
 
 
 def decode_train(cfg, params, tokens, memory, *, remat: bool = False):
     """Teacher-forced decoder over ``tokens`` [B,S] -> normed [B,S,d]."""
-    x = nn.embed_lookup(params["embed"], tokens)
+    x = nn.embed_scale(cfg, nn.embed_lookup(params["embed"], tokens))
     positions = torch.arange(x.shape[1], device=x.device)
     layer = nn.remat(_dec_layer, remat)
     for i in range(cfg.num_layers):
         x = layer(cfg, nn.layer_slice(params["decoder"], i), x, positions,
                   memory)
-    return nn.rmsnorm(params["final_norm"], x)
+    return nn.norm(cfg, params["final_norm"], x)
 
 
 def forward(cfg, params, tokens, *, src_embeds=None, remat: bool = False,
@@ -87,7 +88,8 @@ def forward(cfg, params, tokens, *, src_embeds=None, remat: bool = False,
     x = decode_train(cfg, params, tokens, memory, remat=remat)
     if last_only:
         x = x[:, -1:]
-    logits = nn.embed_logits(params["embed"], x).float()
+    logits = nn.logits_scale(cfg, nn.embed_logits(params["embed"],
+                                                  x).float())
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

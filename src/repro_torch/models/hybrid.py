@@ -20,15 +20,22 @@ SwiGLU MLP):
     x += residual_multiplier * ffn(rmsnorm(x))
 
 with the embedding scaled by ``embedding_multiplier`` and the logits
-divided by ``logits_scaling``; every norm takes ``cfg.rms_norm_eps``.
-Its parameters are stacked by kind: ``mamba`` [n_mamba, ...] (the mamba
-block and its pre-norm ``ln``), ``attn`` [n_attn, ...] (``attn``, ``ln``)
-and ``ffn`` [num_layers, ...] (``moe`` or ``mlp``, ``ln``); the mamba
-state and the KV pools hold only their own kind's layers, in order.
+divided by ``logits_scaling``; every norm takes ``rms_norm_eps``.
+These four are ``models/nn``'s block helpers, which every family takes
+(at their defaults they change nothing).  Its parameters are stacked by
+kind: ``mamba`` [n_mamba, ...] (the mamba block and its pre-norm
+``ln``), ``attn`` [n_attn, ...] (``attn``, ``ln``) and ``ffn``
+[num_layers, ...] (``moe`` or ``mlp``, ``ln``); the mamba state and the
+KV pools hold only their own kind's layers, in order.
+
+The decode step is ``serving/engine``'s one layer loop, whose plan reads
+the order from ``layer_kinds`` and ``num_shared_invocations``; every
+mamba layer there writes its state in place
+(``ssm.mamba_decode_step_``), on one device and on a mesh alike.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -39,7 +46,6 @@ from repro_torch.models import nn
 from repro_torch.models import ssm
 from repro_torch.models import ssm_lm
 from repro_torch.models import moe as MOE
-from repro_torch.obs.trace import span
 
 MIXERS = ("mamba", "attention")
 
@@ -87,44 +93,6 @@ def check_supported(cfg) -> None:
             f"block never runs")
 
 
-def mamba_decode_chunk(cfg, layer_params, states: ssm.MambaState, x,
-                       lo: int, hi: int, tp_axis: Optional[str] = None):
-    """One-token decode through mamba layers [lo, hi): x [B,1,d] ->
-    (x', the chunk's states stacked ``[hi-lo, B, ...]``)."""
-    outs = []
-    for i in range(lo, hi):
-        lp = nn.layer_slice(layer_params, i)
-        st = ssm.MambaState(*(t[i] for t in states))
-        h, st2 = ssm.mamba_decode_step(lp["mamba"], nn.rmsnorm(lp["ln"], x),
-                                       cfg, st, tp_axis=tp_axis)
-        x = x + h
-        outs.append(st2)
-    return x, ssm.MambaState(*(torch.stack(ts) for ts in zip(*outs)))
-
-
-def residual(cfg, h):
-    """A block's output as the residual stream adds it."""
-    r = cfg.residual_multiplier
-    return h if r == 1.0 else h * r
-
-
-def mamba_decode_in_place(cfg, layer_params, states: ssm.MambaState, x,
-                          lo: int, hi: int, keep):
-    """One-token decode through mamba layers [lo, hi) on one device: each
-    layer's new state written into its own slice of the stacked
-    ``states``; lanes where ``keep`` [B] is False keep theirs bit for
-    bit.  x [B,1,d] -> x'."""
-    eps = cfg.rms_norm_eps
-    for i in range(lo, hi):
-        lp = nn.layer_slice(layer_params, i)
-        st = ssm.MambaState(*(t[i] for t in states))
-        h = nn.rmsnorm(lp["ln"], x, eps)
-        with span("model.mamba"):
-            h = ssm.mamba_decode_step_(lp["mamba"], h, cfg, st, keep)
-        x = x + residual(cfg, h)
-    return x
-
-
 def _typed_init(cfg, generator, dev) -> Dict[str, Any]:
     dtype = cfg.activation_dtype()
     d = cfg.d_model
@@ -153,39 +121,22 @@ def _typed_init(cfg, generator, dev) -> Dict[str, Any]:
 
 
 def _typed_layer(cfg, params, i, kind, j, x, positions):
-    eps = cfg.rms_norm_eps
     if kind == "mamba":
         mp = nn.layer_slice(params["mamba"], j)
-        h = ssm.mamba_forward(mp["mamba"], nn.rmsnorm(mp["ln"], x, eps), cfg)
+        h = ssm.mamba_forward(mp["mamba"], nn.norm(cfg, mp["ln"], x), cfg)
     else:
         ap = nn.layer_slice(params["attn"], j)
-        h = L.self_attention(ap["attn"], nn.rmsnorm(ap["ln"], x, eps),
+        h = L.self_attention(ap["attn"], nn.norm(cfg, ap["ln"], x),
                              positions, cfg)
-    x = x + residual(cfg, h)
+    x = x + nn.residual(cfg, h)
     fp = nn.layer_slice(params["ffn"], i)
-    h = nn.rmsnorm(fp["ln"], x, eps)
+    h = nn.norm(cfg, fp["ln"], x)
     if "moe" in fp:
         y, aux = MOE.moe_apply(fp["moe"], h, cfg)
     else:
         y, aux = L.mlp_apply(fp["mlp"], h), torch.zeros(
             (), dtype=torch.float32, device=x.device)
-    return x + residual(cfg, y), aux
-
-
-def _typed_forward(cfg, params, tokens, remat, last_only):
-    x = nn.embed_lookup(params["embed"], tokens)
-    if cfg.embedding_multiplier != 1.0:
-        x = x * cfg.embedding_multiplier
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layer = nn.remat(_typed_layer, remat)
-    for i, (kind, j) in enumerate(layer_kinds(cfg)):
-        x, a = layer(cfg, params, i, kind, j, x, positions)
-        aux = aux + a
-    if last_only:
-        x = x[:, -1:]
-    x = nn.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
-    return lm._logits(cfg, params, x), aux
+    return x + nn.residual(cfg, y), aux
 
 
 def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -210,24 +161,27 @@ def forward(cfg, params, tokens, *, remat: bool = False,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> logits [B,S,V] (f32) and the aux loss
     (zero, or a ``layer_types`` stack's MoE load-balance terms)."""
+    x = nn.embed_scale(cfg, nn.embed_lookup(params["embed"], tokens))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.layer_types:
-        return _typed_forward(cfg, params, tokens, remat, last_only)
-    S = tokens.shape[1]
-    every = cfg.shared_attn_every
-    n_inv = num_shared_invocations(cfg)
-    x = nn.embed_lookup(params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)
-    for g in range(n_inv):
-        x = ssm_lm.mamba_layers(cfg, params["layers"], x, g * every,
-                                (g + 1) * every, remat)
-        x = L.block_apply(params["shared"], x, positions, cfg)
-    x = ssm_lm.mamba_layers(cfg, params["layers"], x, n_inv * every,
-                            cfg.num_layers, remat)
+        layer = nn.remat(_typed_layer, remat)
+        for i, (kind, j) in enumerate(layer_kinds(cfg)):
+            x, a = layer(cfg, params, i, kind, j, x, positions)
+            aux = aux + a
+    else:
+        every = cfg.shared_attn_every
+        n_inv = num_shared_invocations(cfg)
+        for g in range(n_inv):
+            x = ssm_lm.mamba_layers(cfg, params["layers"], x, g * every,
+                                    (g + 1) * every, remat)
+            x = L.block_apply(params["shared"], x, positions, cfg)
+        x = ssm_lm.mamba_layers(cfg, params["layers"], x, n_inv * every,
+                                cfg.num_layers, remat)
     if last_only:
         x = x[:, -1:]
-    x = nn.rmsnorm(params["final_norm"], x)
-    logits = nn.embed_logits(params["embed"], x).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    x = nn.norm(cfg, params["final_norm"], x)
+    return lm._logits(cfg, params, x), aux
 
 
 def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):

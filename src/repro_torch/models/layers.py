@@ -176,20 +176,25 @@ def kv_head_slice(k, v, shard: int, kv_rep: int):
     return k[:, head:head + 1], v[:, head:head + 1]
 
 
+def position_qk(cfg, q, k, positions, mrope_positions=None):
+    """q and k [B,S,H,hd] rotated by RoPE (M-RoPE for the vlm family's
+    streams), or as they are with ``cfg.position_embedding == "nope"``."""
+    if cfg.position_embedding == "nope":
+        return q, k
+    if mrope_positions is not None and cfg.mrope_sections:
+        return (apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
 def self_attention(p, x, positions, cfg, *, window: int = 0,
                    mrope_positions=None, causal: bool = True):
-    """Full-sequence self attention (prefill); no positions at all with
-    ``cfg.position_embedding == "nope"``."""
+    """Full-sequence self attention (prefill)."""
     q, k, v = attn_qkv(p, x)
-    if cfg.position_embedding != "nope":
-        if mrope_positions is not None and cfg.mrope_sections:
-            q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
-                            cfg.rope_theta)
-            k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
-                            cfg.rope_theta)
-        else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = position_qk(cfg, q, k, positions, mrope_positions)
     o = flash_attention(q, k, v, causal=causal, window=window,
                         scale=cfg.attn_scale)
     return attn_out(p, o)
@@ -199,15 +204,16 @@ def cross_attn_init(cfg, dtype, generator, device):
     return attn_init(cfg, dtype, generator, device)
 
 
-def cross_attention(p, x, memory):
+def cross_attention(p, x, memory, *, scale: Optional[float] = None):
     """Encoder-decoder cross attention: q from ``x`` [B,S,d], k/v from
     ``memory`` [B,S_src,d], no positions (the memory carries its own
-    encoding), every memory row attended (non-causal)."""
+    encoding), every memory row attended (non-causal); ``scale`` as
+    ``flash_attention``'s."""
     q = _proj(x, p["wq"])
     k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    o = flash_attention(q, k, v, causal=False)
+    o = flash_attention(q, k, v, causal=False, scale=scale)
     return attn_out(p, o)
 
 
@@ -245,8 +251,10 @@ def block_init(cfg, dtype, generator, device, d_ff: Optional[int] = None):
 
 
 def block_apply(p, x, positions, cfg, *, window: int = 0,
-                mrope_positions=None):
-    h = self_attention(p["attn"], nn.rmsnorm(p["ln1"], x), positions, cfg,
-                       window=window, mrope_positions=mrope_positions)
-    x = x + h
-    return x + mlp_apply(p["mlp"], nn.rmsnorm(p["ln2"], x))
+                mrope_positions=None, causal: bool = True):
+    h = self_attention(p["attn"], nn.norm(cfg, p["ln1"], x), positions,
+                       cfg, window=window, mrope_positions=mrope_positions,
+                       causal=causal)
+    x = x + nn.residual(cfg, h)
+    h = mlp_apply(p["mlp"], nn.norm(cfg, p["ln2"], x))
+    return x + nn.residual(cfg, h)

@@ -74,11 +74,12 @@ def layer_window(cfg, i: int) -> int:
 
 def _apply_layer(cfg, p, x, positions, *, window: int, mrope_positions):
     if cfg.family == "moe":
-        x = x + L.self_attention(p["attn"], nn.rmsnorm(p["ln1"], x),
-                                 positions, cfg, window=window,
-                                 mrope_positions=mrope_positions)
-        y, aux = MOE.moe_apply(p["moe"], nn.rmsnorm(p["ln2"], x), cfg)
-        return x + y, aux
+        h = L.self_attention(p["attn"], nn.norm(cfg, p["ln1"], x),
+                             positions, cfg, window=window,
+                             mrope_positions=mrope_positions)
+        x = x + nn.residual(cfg, h)
+        y, aux = MOE.moe_apply(p["moe"], nn.norm(cfg, p["ln2"], x), cfg)
+        return x + nn.residual(cfg, y), aux
     x = L.block_apply(p, x, positions, cfg, window=window,
                       mrope_positions=mrope_positions)
     return x, None
@@ -90,7 +91,7 @@ def forward(cfg, params, tokens, *, positions=None, patch_embeds=None,
     """Full-sequence forward -> logits [B,S,V] (f32) and aux loss."""
     check_supported(cfg)
     B, S = tokens.shape
-    x = nn.embed_lookup(params["embed"], tokens)
+    x = nn.embed_scale(cfg, nn.embed_lookup(params["embed"], tokens))
     if patch_embeds is not None:
         # vision stub: patch embeddings occupy the first n_patch positions
         n_patch = patch_embeds.shape[1]
@@ -107,7 +108,7 @@ def forward(cfg, params, tokens, *, positions=None, patch_embeds=None,
             aux = aux + a
     if last_only:
         x = x[:, -1:]
-    x = nn.rmsnorm(params["final_norm"], x)
+    x = nn.norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), aux
 
 
@@ -117,10 +118,7 @@ def _logits(cfg, params, x):
             logits = nn.embed_logits(params["embed"], x)
         else:
             logits = nn.dense(params["lm_head"], x)
-        logits = logits.float()
-        if cfg.logits_scaling != 1.0:
-            logits = logits / cfg.logits_scaling
-        return logits
+        return nn.logits_scale(cfg, logits.float())
 
 
 def loss_fn(cfg, params, tokens, labels, *, remat: bool = True):

@@ -58,6 +58,35 @@ def rmsnorm(p, x, eps: float = 1e-6):
         return (y * p["scale"].float()).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# A block's arithmetic around its mixers, as the config sets it: every
+# family's forward and decode step take these, and nothing else reads the
+# four keys (Mamba-2's gated norm inside the mixer takes the eps itself).
+
+def norm(cfg, p, x):
+    """RMSNorm at ``cfg.rms_norm_eps``: each sub-layer's pre-norm and the
+    final norm."""
+    return rmsnorm(p, x, cfg.rms_norm_eps)
+
+
+def residual(cfg, h):
+    """A sub-layer's output as the residual stream adds it."""
+    r = cfg.residual_multiplier
+    return h if r == 1.0 else h * r
+
+
+def embed_scale(cfg, x):
+    """The token embedding as the first layer reads it."""
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def logits_scale(cfg, y):
+    """The float32 read-out divided by ``cfg.logits_scaling``."""
+    s = cfg.logits_scaling
+    return y if s == 1.0 else y / s
+
+
 def embed_init(vocab: int, d: int, dtype, generator, device) -> Params:
     return {"embedding": truncnorm((vocab, d), d ** -0.5, dtype, generator,
                                    device)}

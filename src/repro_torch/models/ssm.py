@@ -5,10 +5,12 @@ Prefill runs the SSD chunked algorithm (arXiv:2405.21060): within a chunk
 of length Q everything is dense products; across chunks a small recurrent
 state h [B,G,Hg,P,N] is carried by a Python loop over the chunks (the
 reference's ``lax.scan``).  Decode is the O(1)-per-token recurrence:
-``mamba_decode_step`` returns the new state, ``mamba_decode_step_``
-writes it into the state it is given, in place (on the card through one
-hand-written kernel, ``kernels/mamba_state``), leaving the lanes it is
-told to keep as they were.  The in-projection is split into z / x / BC / dt matrices, as in the reference.
+``mamba_decode_step_`` writes the new state into the state it is given,
+in place (on the card through one hand-written kernel,
+``kernels/mamba_state``), leaving the lanes it is told to keep as they
+were; ``mamba_decode_step``, the reference's function, runs it on a copy
+and returns the copy.  The in-projection is split into z / x / BC / dt
+matrices, as in the reference.
 
 On a mesh the decode can run on a head shard of the inner dimension
 (``tp_axis``), completing the gated norm and the out projection with
@@ -188,56 +190,32 @@ def mamba_forward(p, x, cfg, *, state: Optional[MambaState] = None,
 def mamba_decode_step(p, x, cfg, state: MambaState, *,
                       tp_axis: Optional[str] = None
                       ) -> Tuple[torch.Tensor, MambaState]:
-    """One-token decode.  x [B,1,d] -> ([B,1,d], state').
+    """One-token decode.  x [B,1,d] -> ([B,1,d], state'): the reference's
+    function, ``mamba_decode_step_`` on a copy of ``state`` with every
+    lane kept; ``state`` is left as it was."""
+    new = MambaState(*(t.clone(memory_format=torch.contiguous_format)
+                       for t in state))
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    return mamba_decode_step_(p, x, cfg, new, keep, tp_axis=tp_axis), new
+
+
+def mamba_decode_step_(p, x, cfg, state: MambaState, keep, *,
+                       tp_axis: Optional[str] = None) -> torch.Tensor:
+    """One-token decode that writes the layer's new state into ``state``
+    (views of one layer of the stacked state) in place.  x [B,1,d] ->
+    [B,1,d].  A lane whose ``keep`` [B] is False keeps its state bit for
+    bit: its conv tails are written back unchanged, and its recurrence
+    runs with ``dA = 1`` and an increment of ``-0.0`` (the exact identity
+    of IEEE addition, signed zeros included); its output is still the
+    advanced state's, rebuilt from the small tensors.
 
     ``tp_axis``: run on this rank's per-head SHARD of the inner dim (the
-    mesh decode paths of ``serving/engine``): the per-head params
-    (w_z/w_x/w_dt/conv_x/A/D/norm) and the recurrent state arrive
-    column-sharded, the shared B/C streams replicated (G == 1, which
+    mesh layouts of ``serving/engine``): the per-head params
+    (w_z/w_x/w_dt/conv_x/A/D/norm) and the state arrive column-sharded,
+    the shared B/C streams replicated (G == 1, which
     ``dist/tp.decode_ssm_tp`` requires), and ``w_out`` is row-parallel with
     the psums in ``_gate_norm_out``.  The local dims come from the param
-    shapes, so the same code runs replicated (``tp_axis=None``)."""
-    Bsz = x.shape[0]
-    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
-    di = p["w_x"].shape[1]
-    Hg = p["w_dt"].shape[1] // G
-    z, xs, bc, dt = _in_proj(p, x)
-    xs, new_tail_x = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"],
-                                  state.conv_x)
-    bc, new_tail_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
-                                   state.conv_bc)
-    x_ssm = xs[:, 0].reshape(Bsz, G, Hg, P)
-    Bm = bc[:, 0, :G * N].reshape(Bsz, G, N)
-    Cm = bc[:, 0, G * N:].reshape(Bsz, G, N)
-    dtp = _softplus(dt[:, 0].float() + p["dt_bias"][None]).reshape(
-        Bsz, G, Hg)
-    A = -torch.exp(p["A_log"]).reshape(G, Hg)
-
-    dA = torch.exp(dtp * A[None])                       # [B,G,Hg]
-    xdt = x_ssm.float() * dtp[..., None]
-    h_new = state.h * dA[..., None, None] + \
-        torch.einsum("bgn,bghp->bghpn", Bm.float(), xdt)
-    y = torch.einsum("bgn,bghpn->bghp", Cm.float(), h_new)
-    y = y + x_ssm.float() * p["D"].reshape(G, Hg)[None, ..., None]
-    # the prefill path's round trip through the activation dtype
-    # (ssd_chunked casts y), so decode tracks forward closely
-    y = y.to(x.dtype).float()
-    out = _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
-                         tp_axis=tp_axis, di_full=cfg.d_inner,
-                         eps=cfg.rms_norm_eps)
-    return out, MambaState(h=h_new, conv_x=new_tail_x, conv_bc=new_tail_bc)
-
-
-def mamba_decode_step_(p, x, cfg, state: MambaState, keep) -> torch.Tensor:
-    """One-token decode on one device that writes the layer's new state
-    into ``state`` (views of one layer of the stacked state) in place.
-    x [B,1,d] -> [B,1,d].  A lane whose ``keep`` [B] is False keeps its
-    state bit for bit: its conv tails are written back unchanged, and its
-    recurrence runs with ``dA = 1`` and an increment of ``-0.0`` (the
-    exact identity of IEEE addition, signed zeros included); its output
-    is still the advanced state's, rebuilt from the small tensors.  For
-    the other lanes the arithmetic is ``mamba_decode_step``'s, op for op,
-    so the state and the output take the same bits.
+    shapes, so the same code runs replicated (``tp_axis=None``).
 
     The recurrence and its read-out are one launch of the mamba state
     kernel (``kernels/mamba_state``) on the card, which raises on shapes it
@@ -267,6 +245,7 @@ def mamba_decode_step_(p, x, cfg, state: MambaState, keep) -> torch.Tensor:
              else MS.mamba_state_plain(*args))
     with span("model.mamba.out"):
         return _gate_norm_out(p, y.reshape(Bsz, 1, di), z, x.dtype,
+                              tp_axis=tp_axis, di_full=cfg.d_inner,
                               eps=cfg.rms_norm_eps)
 
 

@@ -31,7 +31,8 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
 
 
 def _mamba_layer(cfg, lp, x):
-    return x + ssm.mamba_forward(lp["mamba"], nn.rmsnorm(lp["ln"], x), cfg)
+    h = ssm.mamba_forward(lp["mamba"], nn.norm(cfg, lp["ln"], x), cfg)
+    return x + nn.residual(cfg, h)
 
 
 def mamba_layers(cfg, stacked, x, lo: int, hi: int, remat: bool = False):
@@ -48,12 +49,13 @@ def forward(cfg, params, tokens, *, remat: bool = False,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> logits [B,S,V] (f32) and a zero aux
     loss."""
-    x = nn.embed_lookup(params["embed"], tokens)
+    x = nn.embed_scale(cfg, nn.embed_lookup(params["embed"], tokens))
     x = mamba_layers(cfg, params["layers"], x, 0, cfg.num_layers, remat)
     if last_only:
         x = x[:, -1:]
-    x = nn.rmsnorm(params["final_norm"], x)
-    logits = nn.embed_logits(params["embed"], x).float()
+    x = nn.norm(cfg, params["final_norm"], x)
+    logits = nn.logits_scale(cfg, nn.embed_logits(params["embed"],
+                                                  x).float())
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -1,54 +1,63 @@
 """Decode engine (PyTorch port of ``serving/engine.py``: every model
 family — dense, moe and vlm with gemma3's local/global pattern, ssm,
-hybrid and encdec — with bf16 or int8 KV pools, one device, no mesh).
+hybrid and encdec — with bf16 or int8 KV pools, on one device or a mesh).
 
 Each decode token the engine (``_serve_step_impl``):
-1. allocates pages at page-boundary crossings through the hash table and
+1. embeds the tokens and, when the family has paged layers (not ``ssm``),
+   allocates pages at page-boundary crossings through the hash table and
    reads the rest from the incremental block table
    (``PageTable.alloc_step_incremental``);
-2. per paged (global) layer, computes q/k/v with RoPE (M-RoPE for the vlm
-   family), writes the token's K/V into its page (``paged.write_token_kv``;
-   int8 pools with bf16 scales when ``cfg.kv_cache_dtype == "int8"``) and
-   attends over the paged KV — with ``cfg.fused_kernel=True`` through the
-   fused kernel K1 (``kernels/fused_decode``), which walks the raw block
-   table, otherwise through the plain ``paged.attend_local`` over
-   compacted pages;
-3. per gemma3 local layer, writes the token's K/V into the lane's ring of
-   ``local_window`` slots and attends over it (``_ring_attn``, plain
-   PyTorch as in the reference), then advances ``ring_pos`` once after all
-   layers;
-4. finishes each block (SwiGLU MLP, or the MoE for the moe family) and
-   returns the logits.
+2. runs one layer loop over the step's layer plan (``_layer_plan``, built
+   from ``cfg`` and ``params``): each layer is its sub-layers in order,
+   and each sub-layer is ``x += residual(mixer(norm(x)))``, the norm, the
+   residual's scale, the embedding's multiplier and the read-out's
+   ``logits_scaling`` all ``models/nn``'s block helpers.  The mixers:
+   - ``attn``: q/k/v with RoPE (M-RoPE for the vlm family, none with
+     ``position_embedding == "nope"``: ``_rope_qk``), the token's K/V
+     written into its page (``paged.write_token_kv``; int8 pools with
+     bf16 scales when ``cfg.kv_cache_dtype == "int8"``) and attention
+     over the paged KV, with ``cfg.fused_kernel=True`` through the fused
+     kernel K1 (``kernels/fused_decode``), which walks the raw block
+     table, otherwise through the plain ``paged.attend_local`` over
+     compacted pages;
+   - ``ring``: gemma3's local layer, the token's K/V written into the
+     lane's ring of ``local_window`` slots and attended (``_ring_attn``,
+     plain PyTorch as in the reference); ``ring_pos`` advances once after
+     the loop;
+   - ``mamba``: one mamba layer's one-token recurrence, its state updated
+     in place;
+   - ``cross``: encdec's attention over the encoder's cross K/V
+     (``prepare_encdec_state``);
+   - ``ffn``: the MoE or the SwiGLU MLP, by the params' key;
+3. applies the final norm and returns the logits.
 
-The other families follow the reference's branches: ``ssm`` (mamba2) has
-no page table and runs its mamba layers' one-token recurrence; ``hybrid``
-(zamba2) runs each group of mamba layers and then the shared attention
-block, each invocation over its own pool (K1 with ``fused_kernel``), or,
-with ``cfg.layer_types`` (granitemoehybrid, one device), each layer's
-mixer in order, a mamba layer or an attention layer over its own pool,
-each followed by the layer's FFN (``_typed_layers``);
-``encdec`` (seamless) attends over its paged self-attention KV through the
-plain ``attend_local`` (the reference does not wire it to the fused
-kernel; ``fallback_report`` says so) and over the encoder's cross K/V
-(``prepare_encdec_state``).  A refused or inactive lane's mamba state is
-frozen: the recurrence is not idempotent.
+The plan follows the reference's branches: dense, moe and vlm run [attn
+or ring, ffn] a layer; ``ssm`` (mamba2) its mamba layers and no page
+ops; ``hybrid`` (zamba2) each group of mamba layers and then the shared
+block's [attn, ffn], each invocation over its own pool, or, with
+``cfg.layer_types`` (granitemoehybrid, one device), [mamba or attn,
+ffn] a layer, an attention layer over its own pool; ``encdec``
+(seamless) [attn, cross, ffn], its self attention through the plain
+``attend_local`` (the reference does not wire it to the fused kernel;
+``fallback_report`` says so).  A refused or inactive lane's mamba state
+is frozen: the recurrence is not idempotent.
 
 ``make_serve_megastep`` runs K tokens with greedy sampling in one call (the
 reference's ``lax.scan`` becomes a Python loop), with the same teacher
 forcing (``forced``/``forced_mask``), abort latch and ``stop_len`` latch.
 K1 or its plain version is chosen by the wrapper from the tensors' device.
 
-In place: the KV pools, their int8 scales, the ring buffers and, on one
-device, the mamba state are updated in place by every step (a step
-writes one token per lane; a functional copy would cost the whole pool,
-and the mamba state of a batch of long-lived lanes is as large).  Each
-mamba layer writes its new ``h`` and conv tails into its own slice of
-the stacked state, and freezes a refused or inactive lane inside that
-update (``ssm.mamba_decode_step_``); ``reset_lanes`` clears lanes in
-place too.  On a mesh the mamba state is new tensors each step, the
-frozen lanes' rows kept by ``_freeze_lanes``.  Table, block table,
-``ring_pos`` and the other leaves are new tensors.  A caller that needs
-the state before a step keeps a ``clone_state`` of it.
+In place: the KV pools, their int8 scales, the ring buffers and the
+mamba state are updated in place by every step, on one device and on
+every mesh layout (a step writes one token per lane; a functional copy
+would cost the whole pool, and the mamba state of a batch of long-lived
+lanes is as large).  Each mamba layer writes its new ``h`` and conv
+tails into its own slice of the stacked state (on a mesh rank, the
+rank's lanes and heads of it), and freezes a refused or inactive lane
+inside that update (``ssm.mamba_decode_step_``); ``reset_lanes`` clears
+lanes in place too.  Table, block table, ``ring_pos`` and the other
+leaves are new tensors.  A caller that needs the state before a step
+keeps a ``clone_state`` of it.
 
 On a device mesh (``rules``, ``serve_rules`` or ``serve_manual_rules``)
 the program runs SPMD: one process per rank (``launch/mesh.run_spmd``),
@@ -583,6 +592,25 @@ def _rope_single(cfg, x, positions, mrope=None):
         return out[:, 0]
 
 
+def _rope_qk(cfg, q, k, positions, mrope=None):
+    """The token's q and k rotated (``_rope_single``), or as they are with
+    ``position_embedding == "nope"``: every attention helper's one
+    decision on positions."""
+    if cfg.position_embedding == "nope":
+        return q, k
+    return (_rope_single(cfg, q, positions, mrope),
+            _rope_single(cfg, k, positions, mrope))
+
+
+def _scores(cfg, q, k, eq):
+    """``einsum(eq, q, k)`` in float32 at ``cfg``'s softmax scale
+    (``attention_multiplier``, or ``1 / sqrt(hd)`` unset)."""
+    s = torch.einsum(eq, q.float(), k.float())
+    if cfg.attn_scale is None:
+        return s / math.sqrt(q.shape[-1])
+    return s * cfg.attn_scale
+
+
 def _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused):
     """The (o, m, l) partials of q [B, QH, hd] over this rank's pages:
     K1 on the rank-local raw block table, or the plain ``attend_local``
@@ -612,10 +640,10 @@ def _paged_attn(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
                 mrope, fused, *, gather_heads=False):
     """A paged layer: q/k/v (all-gathered over ``model`` when
     ``gather_heads`` and the weights are head-sharded: the gspmd step),
-    RoPE (none with ``position_embedding == "nope"``), the token's K/V
-    written into this rank's pages, the partials over them, merged
-    across the page axes, then the out projection — row-parallel with a
-    psum over ``model`` when the q heads are sharded."""
+    RoPE (``_rope_qk``), the token's K/V written into this rank's pages,
+    the partials over them, merged across the page axes, then the out
+    projection — row-parallel with a psum over ``model`` when the q heads
+    are sharded."""
     B = x.shape[0]
     q, k, v = L.attn_qkv_decode(ap, x[:, 0])
     q_sharded = gather_heads and q.shape[1] < cfg.n_q
@@ -624,9 +652,7 @@ def _paged_attn(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
     if gather_heads and k.shape[1] < cfg.n_kv:
         k = C.all_gather(k, "model", dim=1)
         v = C.all_gather(v, "model", dim=1)
-    if cfg.position_embedding != "nope":
-        q = _rope_single(cfg, q, positions, mrope)
-        k = _rope_single(cfg, k, positions, mrope)
+    q, k = _rope_qk(cfg, q, k, positions, mrope)
     paged.write_token_kv(pk, pv, k, v, write_slot, positions, pg.chip,
                          pg.npr, pg.page_size, scales=scales, plan=pg.plan)
     o, m, l = _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused)
@@ -658,8 +684,7 @@ def _paged_attn_shard(cfg, x, ap, pk, pv, scales, pg, write_slot, positions,
     B = x.shape[0]
     q, k, v = L.attn_qkv_decode(ap, x[:, 0])
     k, v = L.kv_head_slice(k, v, C.axis_index("model"), kv_rep)
-    q = _rope_single(cfg, q, positions, mrope)
-    k = _rope_single(cfg, k, positions, mrope)
+    q, k = _rope_qk(cfg, q, k, positions, mrope)
     paged.write_token_kv(pk, pv, k, v, write_slot, positions, pg.chip,
                          pg.npr, pg.page_size, scales=scales, plan=pg.plan)
     o, m, l = _attend_pages(cfg, q, pk, pv, scales, pg, positions, fused)
@@ -686,8 +711,7 @@ def _ring_core(cfg, q, k, v, ring_k_l, ring_v_l, ring_pos, positions):
     ring_v_l[lanes, slot] = v.to(ring_v_l.dtype)
     kv = k.shape[1]
     qg = q.reshape(B, kv, H // kv, hd)
-    s = torch.einsum("bkgd,bwkd->bkgw", qg.float(),
-                     ring_k_l.float()) / math.sqrt(hd)
+    s = _scores(cfg, qg, ring_k_l, "bkgd,bwkd->bkgw")
     pos = positions[:, None]
     ok = (ring_pos >= 0) & (ring_pos <= pos) & (ring_pos > pos - W)
     ok[lanes, slot] = True
@@ -701,8 +725,7 @@ def _ring_attn(cfg, x, ap, ring_k_l, ring_v_l, ring_pos, positions):
     """One device: x [B,1,d]; one local layer's ring [B,W,kv,hd].
     Returns attn_out [B,1,d]."""
     q, k, v = L.attn_qkv_decode(ap, x[:, 0])
-    q = _rope_single(cfg, q, positions)
-    k = _rope_single(cfg, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions)
     o = _ring_core(cfg, q, k, v, ring_k_l, ring_v_l, ring_pos, positions)
     return L.attn_out_decode(ap, o)[:, None]
 
@@ -716,8 +739,7 @@ def _ring_attn_shard(cfg, x, ap, ring_k_l, ring_v_l, ring_pos, positions,
     psum."""
     q, k, v = L.attn_qkv_decode(ap, x[:, 0])
     k, v = L.kv_head_slice(k, v, C.axis_index("model"), kv_rep)
-    q = _rope_single(cfg, q, positions)
-    k = _rope_single(cfg, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions)
     o = _ring_core(cfg, q, k, v, ring_k_l, ring_v_l, ring_pos, positions)
     return C.psum(L.attn_out_decode(ap, o), "model")[:, None]
 
@@ -735,8 +757,7 @@ def _ring_attn_gspmd(cfg, x, ap, ring_k_l, ring_v_l, ring_pos, positions):
     if k.shape[1] < cfg.n_kv:
         k = C.all_gather(k, "model", dim=1)
         v = C.all_gather(v, "model", dim=1)
-    q = _rope_single(cfg, q, positions)
-    k = _rope_single(cfg, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions)
     lanes = lane_slice(ring_k_l, 0, B)
     kv_l = ring_k_l.shape[2]
     G = cfg.n_q // cfg.n_kv
@@ -754,29 +775,13 @@ def _ring_attn_gspmd(cfg, x, ap, ring_k_l, ring_v_l, ring_pos, positions):
 # ---------------------------------------------------------------------------
 # Cross attention at decode (encdec): dense precomputed memory K/V.
 
-def _cross_attn_decode(cfg, x, cp, ck, cv):
-    """x [B,1,d]; one layer's cross K/V [B,S_src,kv,hd] -> [B,1,d]."""
-    B = x.shape[0]
-    q = L._proj(x[:, 0], cp["wq"])
-    if "bq" in cp:
-        q = q + cp["bq"]
-    n_kv, G = cfg.n_kv, cfg.n_q // cfg.n_kv
-    qg = q.reshape(B, n_kv, G, cfg.hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     ck.float()) / math.sqrt(cfg.hd)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
-    o = o.reshape(B, cfg.n_q, cfg.hd).to(x.dtype)
-    return L.attn_out_decode(cp, o)[:, None]
-
-
-def _cross_attn_gspmd(cfg, x, cp, ck, cv):
-    """Cross attention on a mesh rank's pieces: ``x`` [B,1,d] replicated,
-    ``cp`` the rules' cut of the weights (heads over ``model``), ``ck``/
-    ``cv`` this rank's lanes (over ``data``) and KV heads (over
-    ``model``).  The rank's heads are psum'd over ``model`` after the
-    row-parallel out projection, and the lanes all-gathered over
-    ``data``."""
+def _cross_attn(cfg, x, cp, ck, cv):
+    """Cross attention over one layer's cross K/V: ``x`` [B,1,d] -> [B,1,d].
+    On a mesh rank ``x`` is replicated, ``cp`` the rules' cut of the
+    weights (heads over ``model``), ``ck``/``cv`` this rank's lanes (over
+    ``data``) and KV heads (over ``model``): the rank's heads are psum'd
+    over ``model`` after the row-parallel out projection, and the lanes
+    all-gathered over ``data``.  On one device every cut is whole."""
     B = x.shape[0]
     lanes = lane_slice(ck, 0, B)
     q = L._proj(x[lanes, 0], cp["wq"])
@@ -799,8 +804,7 @@ def _cross_attn_gspmd(cfg, x, cp, ck, cv):
         raise ValueError(f"cross attention: {hq} local q heads do not "
                          f"group over {hkv} KV heads")
     qg = q.reshape(Bl, hkv, G, cfg.hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     ck.float()) / math.sqrt(cfg.hd)
+    s = _scores(cfg, qg, ck, "bkgd,bskd->bkgs")
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
     o = L.attn_out_decode(cp, o.reshape(Bl, hq, cfg.hd).to(x.dtype))
@@ -830,7 +834,7 @@ def prepare_encdec_state(cfg, params, state, src_embeds, *, rules=None):
             x = TP.block_apply_sharded(
                 cfg, nn.layer_slice(params["encoder"], i), x, positions,
                 causal=False)
-        memory = nn.rmsnorm(params["enc_norm"], x)
+        memory = nn.norm(cfg, params["enc_norm"], x)
         lanes = lane_slice(state["cross_k"], 1, src_embeds.shape[0])
     ks, vs = [], []
     for i in range(cfg.num_layers):
@@ -857,9 +861,12 @@ class _Ops:
     def __init__(self, cfg, rules=None):
         self.cfg = cfg
         self.fused = _fused_kernel_ok(cfg, rules)
+        # the mamba state and weights head-sharded over model, or whole
+        self.ssm_axis = "model" if _ssm_tp(cfg, rules) else None
 
     def embed(self, params, tokens):
-        return nn.embed_lookup(params["embed"], tokens)
+        return nn.embed_scale(self.cfg, nn.embed_lookup(params["embed"],
+                                                        tokens))
 
     def page_axes(self):
         return ()
@@ -871,23 +878,26 @@ class _Ops:
     def ring(self, x, ap, rk, rv, ring_pos, positions):
         return _ring_attn(self.cfg, x, ap, rk, rv, ring_pos, positions)
 
-    def ffn(self, lpp, x):
-        if "moe" in lpp:
-            return MOE.moe_apply(lpp["moe"], x, self.cfg)[0]
-        return L.mlp_apply(lpp["mlp"], x)
-
-    def mlp(self, mp, x):
-        return L.mlp_apply(mp, x)
+    def ffn(self, p, x):
+        """The MoE when ``p`` has one, else the SwiGLU MLP."""
+        if "moe" in p:
+            return MOE.moe_apply(p["moe"], x, self.cfg)[0]
+        return L.mlp_apply(p["mlp"], x)
 
     def cross(self, cp, x, ck, cv):
-        return _cross_attn_decode(self.cfg, x, cp, ck, cv)
+        return _cross_attn(self.cfg, x, cp, ck, cv)
 
-    def mamba(self, layers, states, x, lo, hi, keep):
-        """Mamba layers [lo, hi): (x', None), the layers' states updated in
-        place with the lanes outside ``keep`` frozen; the mesh layouts
-        return (x', the layers' new states) for ``_freeze_ssm``."""
-        return HY.mamba_decode_in_place(self.cfg, layers, states, x, lo, hi,
-                                        keep), None
+    def mamba(self, x, mp, st, keep):
+        """One mamba layer on the lanes its state ``st`` holds (all of
+        them, or this rank's ``data`` shard on the gspmd layout) and, with
+        ``ssm_axis``, this rank's heads (psums inside): the layer's state
+        written in place with the lanes outside ``keep`` frozen, the
+        output all-gathered over the lanes so x stays replicated."""
+        B = x.shape[0]
+        lanes = lane_slice(st.h, 0, B)
+        y = ssm.mamba_decode_step_(mp, x[lanes], self.cfg, st, keep[lanes],
+                                   tp_axis=self.ssm_axis)
+        return C.all_gather(y, "data", dim=0) if y.shape[0] < B else y
 
     def logits(self, params, x):
         return lm._logits(self.cfg, params, x)
@@ -900,7 +910,6 @@ class _GspmdOps(_Ops):
     def __init__(self, cfg, rules):
         super().__init__(cfg, rules)
         self.rules = rules
-        self.ssm_tp = _ssm_tp(cfg, rules)
 
     def page_axes(self):
         """The axes the rules' ``pages`` entry names (every axis under
@@ -909,9 +918,6 @@ class _GspmdOps(_Ops):
         want = self.rules.rules.get("pages", ())
         return tuple(a for a in _mesh_axes(self.rules) if a in want)
 
-    def cross(self, cp, x, ck, cv):
-        return _cross_attn_gspmd(self.cfg, x, cp, ck, cv)
-
     def embed(self, params, tokens):
         """A vocab-sharded table: each rank looks up the tokens in its
         rows, the others give 0, and a psum over ``model`` (one nonzero
@@ -919,11 +925,13 @@ class _GspmdOps(_Ops):
         emb = params["embed"]["embedding"]
         Vl = emb.shape[0]
         if Vl == self.cfg.vocab_size:
-            return emb[tokens]
-        idx = tokens.long() - C.axis_index("model") * Vl
-        ok = (idx >= 0) & (idx < Vl)
-        x = torch.where(ok[..., None], emb[idx.clamp(0, Vl - 1)], 0)
-        return C.psum(x, "model")
+            x = emb[tokens]
+        else:
+            idx = tokens.long() - C.axis_index("model") * Vl
+            ok = (idx >= 0) & (idx < Vl)
+            x = C.psum(torch.where(ok[..., None],
+                                   emb[idx.clamp(0, Vl - 1)], 0), "model")
+        return nn.embed_scale(self.cfg, x)
 
     def attn(self, x, ap, pk, pv, scales, pg, write_slot, positions, mrope):
         return _paged_attn(self.cfg, x, ap, pk, pv, scales, pg, write_slot,
@@ -932,37 +940,14 @@ class _GspmdOps(_Ops):
     def ring(self, x, ap, rk, rv, ring_pos, positions):
         return _ring_attn_gspmd(self.cfg, x, ap, rk, rv, ring_pos, positions)
 
-    def ffn(self, lpp, x):
-        if self.cfg.family == "moe":
-            return MOE.moe_apply(lpp["moe"], x, self.cfg, rules=self.rules)[0]
-        return self.mlp(lpp["mlp"], x)
-
-    def mlp(self, mp, x):
-        """Column-parallel gate/up, row-parallel wo + psum when d_ff is
-        sharded over ``model``."""
-        y = L.mlp_apply(mp, x)
-        return C.psum(y, "model") if mp["wo"].shape[0] < self.cfg.d_ff \
-            else y
-
-    def mamba(self, layers, states, x, lo, hi, keep):
-        """Mamba layers [lo, hi) on this rank's lanes (``data``) and, when
-        head-sharded, its heads (psums over ``model`` inside); the layers'
-        outputs are all-gathered over the lanes so x stays replicated."""
-        B = x.shape[0]
-        lanes = lane_slice(states.h, 1, B)
-        tp_axis = "model" if self.ssm_tp else None
-        outs = []
-        for i in range(lo, hi):
-            lp = nn.layer_slice(layers, i)
-            st = ssm.MambaState(*(t[i] for t in states))
-            h, st2 = ssm.mamba_decode_step(
-                lp["mamba"], nn.rmsnorm(lp["ln"], x[lanes]), self.cfg, st,
-                tp_axis=tp_axis)
-            if h.shape[0] < B:
-                h = C.all_gather(h, "data", dim=0)
-            x = x + h
-            outs.append(st2)
-        return x, ssm.MambaState(*(torch.stack(ts) for ts in zip(*outs)))
+    def ffn(self, p, x):
+        """The MoE under the rules, or the MLP: column-parallel gate/up,
+        row-parallel wo + psum when d_ff is sharded over ``model``."""
+        if "moe" in p:
+            return MOE.moe_apply(p["moe"], x, self.cfg, rules=self.rules)[0]
+        y = L.mlp_apply(p["mlp"], x)
+        return C.psum(y, "model") if p["mlp"]["wo"].shape[0] < \
+            self.cfg.d_ff else y
 
     def logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -971,7 +956,7 @@ class _GspmdOps(_Ops):
             y = nn.dense(params["lm_head"], x)
         if y.shape[-1] < self.cfg.vocab_size:
             y = C.all_gather(y, "model", dim=-1)
-        return y.float()
+        return nn.logits_scale(self.cfg, y.float())
 
 
 class _ManualOps(_Ops):
@@ -983,7 +968,6 @@ class _ManualOps(_Ops):
         self.rules = rules
         tp = rules.mesh.shape["model"]
         self.kv_rep = TP.decode_kv_rep(cfg, tp)
-        self.ssm_axis = "model" if _ssm_tp(cfg, rules) else None
         self.vocab_sharded = (not cfg.tie_embeddings
                               and cfg.vocab_size % tp == 0)
 
@@ -999,22 +983,14 @@ class _ManualOps(_Ops):
         return _ring_attn_shard(self.cfg, x, ap, rk, rv, ring_pos,
                                 positions, self.kv_rep)
 
-    def ffn(self, lpp, x):
-        if self.cfg.family == "moe":
-            return MOE.moe_decode_local(lpp["moe"], x, self.cfg)
-        return TP.mlp_decode_manual(lpp["mlp"], x)
-
-    def mlp(self, mp, x):
-        return TP.mlp_decode_manual(mp, x)
-
-    def mamba(self, layers, states, x, lo, hi, keep):
-        return HY.mamba_decode_chunk(self.cfg, layers, states, x, lo, hi,
-                                     tp_axis=self.ssm_axis)
+    def ffn(self, p, x):
+        if "moe" in p:
+            return MOE.moe_decode_local(p["moe"], x, self.cfg)
+        return TP.mlp_decode_manual(p["mlp"], x)
 
     def logits(self, params, x):
-        return TP.logits_decode_manual(self.cfg, params, x,
-                                       vocab_sharded=self.vocab_sharded
-                                       ).float()
+        return nn.logits_scale(self.cfg, TP.logits_decode_manual(
+            self.cfg, params, x, vocab_sharded=self.vocab_sharded).float())
 
 
 def _ops(cfg, rules) -> _Ops:
@@ -1172,133 +1148,81 @@ def _page_ops(cfg, state, positions, active, ops, *, S_max, page_size):
     return table, write_slot, aborts, bt, pg
 
 
-def _freeze_lanes(new, old, act):
-    """Per-lane freeze of refused or inactive lanes on a mesh rank's new
-    mamba state: the leaves are ``[L, B, ...]`` stacked per-layer state
-    (``act`` for the lanes they hold).  A refused token must leave no
-    trace — the SSM recurrence is not idempotent under re-issue (unlike
-    the KV and ring writes, which rewrite the same slot with the same
-    value) — so the engine keeps such lanes' old rows.  One device
-    freezes inside each layer's in-place update instead."""
-    def sel(n, o):
-        return torch.where(act.reshape((1, -1) + (1,) * (n.dim() - 2)), n, o)
-    return type(new)(*(sel(n, o) for n, o in zip(new, old)))
+def _layer_plan(cfg, params):
+    """Each layer's sub-layers in order, ``(kind, norm params, mixer
+    params, state index)``, in the order the families decide
+    (``lm.layer_window``, ``HY.layer_kinds``,
+    ``HY.num_shared_invocations``).  The kinds: ``attn``, paged attention
+    over pool j; ``ring``, gemma3's local attention over ring j;
+    ``mamba``, a mamba layer on state layer j; ``cross``, encdec's cross
+    attention over ``cross_k[j]``; ``ffn``, the MoE or the SwiGLU MLP by
+    the params' key (no state).
 
+    dense/moe/vlm: [attn or ring, ffn] a layer; a ``layer_types`` stack:
+    [mamba or attn, ffn] a layer, the params stacked by kind; zamba2: each
+    group of ``shared_attn_every`` mamba layers, then [attn, ffn] of the
+    one shared block (invocation g over pool g), then the trailing mamba
+    layers; mamba2: mamba layers only; encdec: [attn, cross, ffn] a layer.
 
-def _freeze_ssm(new, old, act):
-    """``_freeze_lanes`` on the lanes this rank's mamba state holds."""
-    return _freeze_lanes(new, old, act[lane_slice(old.h, 1, act.shape[0])])
+    Yielded a layer at a time, so that a layer's parameter views are made
+    while the card runs the layer before it: made up front, they held
+    back the step's first launches (qwen2.5-32b's 16 layers at 256 lanes:
+    ~1.7 ms more a token step on an H100).  Each layer is yielded inside
+    its ``model.layer`` span, which so covers the views and the caller's
+    work on the layer."""
+    if cfg.family == "encdec":
+        for i in range(cfg.num_layers):
+            with span("model.layer"):
+                lp = nn.layer_slice(params["decoder"], i)
+                yield [("attn", lp["ln1"], lp["attn"], i),
+                       ("cross", lp["ln_cross"], lp["cross"], i),
+                       ("ffn", lp["ln2"], lp, None)]
+    elif cfg.layer_types:
+        for i, (kind, j) in enumerate(HY.layer_kinds(cfg)):
+            with span("model.layer"):
+                if kind == "mamba":
+                    mp = nn.layer_slice(params["mamba"], j)
+                    mixer = ("mamba", mp["ln"], mp["mamba"], j)
+                else:
+                    ap = nn.layer_slice(params["attn"], j)
+                    mixer = ("attn", ap["ln"], ap["attn"], j)
+                fp = nn.layer_slice(params["ffn"], i)
+                yield [mixer, ("ffn", fp["ln"], fp, None)]
+    elif cfg.family in ("ssm", "hybrid"):
+        def mamba(lo, hi):
+            for i in range(lo, hi):
+                with span("model.layer"):
+                    lp = nn.layer_slice(params["layers"], i)
+                    yield [("mamba", lp["ln"], lp["mamba"], i)]
 
-
-def _attention_layers(cfg, params, state, x, positions, mrope, attn, ops):
-    """The dense, moe and vlm families' layers in order: gemma3's local
-    layers attend over their ring, every other layer over the paged KV
-    (the reference's superblock scan in _gemma_layers visits them in the
-    same order).  ``attn(h, ap, j, mrope)`` is paged layer j's attention.
-    Returns (x, ring_pos' or None)."""
-    B = x.shape[0]
-    n_ring = 0
-    n_paged = 0
-    for i in range(cfg.num_layers):
-        with span("model.layer"):
-            lpp = nn.layer_slice(params["layers"], i)
-            h = nn.rmsnorm(lpp["ln1"], x)
-            if lm.layer_window(cfg, i):
-                x = x + ops.ring(h, lpp["attn"], state["ring_k"][n_ring],
-                                 state["ring_v"][n_ring], state["ring_pos"],
-                                 positions)
-                n_ring += 1
-            else:
-                x = x + attn(h, lpp["attn"], n_paged, mrope)
-                n_paged += 1
-            x = x + ops.ffn(lpp, nn.rmsnorm(lpp["ln2"], x))
-    if not n_ring:
-        return x, None
-    # every lane's slot takes this step's position, after all layers
-    ring_pos = state["ring_pos"].clone()
-    lanes = lane_slice(ring_pos, 0, B)
-    W = ring_pos.shape[1]
-    p = positions[lanes]
-    ring_pos[torch.arange(p.shape[0], device=p.device),
-             (p % W).to(torch.int64)] = p
-    return x, ring_pos
-
-
-def _hybrid_layers(cfg, params, state, x, attn, ops, keep):
-    """zamba2: each group of ``shared_attn_every`` mamba layers, then the
-    shared block over its own pool (invocation g writes pool g), then the
-    trailing mamba layers.  Returns (x, the mamba state of every layer,
-    or None when it was updated in place)."""
-    every = cfg.shared_attn_every
-    n_inv = HY.num_shared_invocations(cfg)
-    sp = params["shared"]
-    chunks = []
-    for g in range(n_inv):
-        x, s2 = ops.mamba(params["layers"], state["ssm"], x, g * every,
-                          (g + 1) * every, keep)
-        chunks.append(s2)
-        x = x + attn(nn.rmsnorm(sp["ln1"], x), sp["attn"], g, None)
-        x = x + ops.mlp(sp["mlp"], nn.rmsnorm(sp["ln2"], x))
-    if cfg.num_layers > n_inv * every:
-        x, s2 = ops.mamba(params["layers"], state["ssm"], x, n_inv * every,
-                          cfg.num_layers, keep)
-        chunks.append(s2)
-    if chunks[0] is None:
-        return x, None
-    return x, ssm.MambaState(*(torch.cat(ts) for ts in zip(*chunks)))
-
-
-def _typed_layers(cfg, params, state, x, attn, ops, keep):
-    """A ``layer_types`` stack on one device: each layer's mixer (a mamba
-    layer, its state updated in place, or an attention layer over its own
-    pool: attention layer j writes pool j), then the layer's FFN, each
-    block's output scaled by ``residual_multiplier``."""
-    eps = cfg.rms_norm_eps
-    for i, (kind, j) in enumerate(HY.layer_kinds(cfg)):
-        with span("model.layer"):
-            if kind == "mamba":
-                x, _ = ops.mamba(params["mamba"], state["ssm"], x, j, j + 1,
-                                 keep)
-            else:
-                ap = nn.layer_slice(params["attn"], j)
-                x = x + HY.residual(cfg, attn(nn.rmsnorm(ap["ln"], x, eps),
-                                              ap["attn"], j, None))
-            fp = nn.layer_slice(params["ffn"], i)
-            x = x + HY.residual(cfg, ops.ffn(fp, nn.rmsnorm(fp["ln"], x,
-                                                            eps)))
-    return x
-
-
-def _encdec_layers(cfg, params, state, x, attn, ops):
-    """seamless's decoder: paged causal self attention, cross attention
-    over the encoder's K/V, SwiGLU MLP."""
-    for i in range(cfg.num_layers):
-        with span("model.layer"):
-            lpp = nn.layer_slice(params["decoder"], i)
-            x = x + attn(nn.rmsnorm(lpp["ln1"], x), lpp["attn"], i, None)
-            x = x + ops.cross(lpp["cross"], nn.rmsnorm(lpp["ln_cross"], x),
-                              state["cross_k"][i], state["cross_v"][i])
-            x = x + ops.mlp(lpp["mlp"], nn.rmsnorm(lpp["ln2"], x))
-    return x
+        every = cfg.shared_attn_every
+        n_inv = HY.num_shared_invocations(cfg) if cfg.family == "hybrid" \
+            else 0
+        for g in range(n_inv):
+            yield from mamba(g * every, (g + 1) * every)
+            with span("model.layer"):
+                sp = params["shared"]
+                yield [("attn", sp["ln1"], sp["attn"], g),
+                       ("ffn", sp["ln2"], sp, None)]
+        yield from mamba(n_inv * every, cfg.num_layers)
+    else:
+        seen = {"attn": 0, "ring": 0}
+        for i in range(cfg.num_layers):
+            with span("model.layer"):
+                lp = nn.layer_slice(params["layers"], i)
+                kind = "ring" if lm.layer_window(cfg, i) else "attn"
+                yield [(kind, lp["ln1"], lp["attn"], seen[kind]),
+                       ("ffn", lp["ln2"], lp, None)]
+            seen[kind] += 1
 
 
 def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
                      S_max, page_size, rules=None):
     ops = _ops(cfg, rules)
     x = ops.embed(params, tokens)                     # [B,1,d]
-    if cfg.embedding_multiplier != 1.0:
-        x = x * cfg.embedding_multiplier
     new_state = dict(state)
     act = state["active"] & ~state["aborted"]
-
-    if cfg.family == "ssm":
-        # attention-free: no page table, nothing refused
-        aborts = torch.zeros_like(act)
-        x, ssm2 = ops.mamba(params["layers"], state["ssm"], x, 0,
-                            cfg.num_layers, act)
-        if ssm2 is not None:
-            new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"], act)
-    else:
+    if "table" in state:
         # encdec's self attention takes the plain attend_local, as in the
         # reference (_fused_kernel_reason)
         table, write_slot, aborts, bt, pg = _page_ops(
@@ -1306,34 +1230,45 @@ def _serve_step_impl(cfg, params, state, tokens, positions, mrope=None, *,
             page_size=page_size)
         new_state["table"] = table
         new_state["block_table"] = bt
-        pools, scales = state["pools"], state.get("pool_scales")
+    else:
+        # attention-free: no page table, nothing refused
+        aborts = torch.zeros_like(act)
+        pg = write_slot = None
+    # a lane refused THIS step re-issues its token after the rebuild: its
+    # recurrent state must not advance either
+    keep = act & ~aborts if "ssm" in state else None
+    pools, scales = state.get("pools"), state.get("pool_scales")
+    mamba_st = state.get("ssm")
 
-        def attn(h, ap, j, mrope_j):
-            return ops.attn(h, ap, pools.k[j], pools.v[j],
+    def mix(kind, h, p, j):
+        if kind == "attn":
+            return ops.attn(h, p, pools.k[j], pools.v[j],
                             None if scales is None else (scales.k[j],
                                                          scales.v[j]),
-                            pg, write_slot, positions, mrope_j)
+                            pg, write_slot, positions, mrope)
+        if kind == "ring":
+            return ops.ring(h, p, state["ring_k"][j], state["ring_v"][j],
+                            state["ring_pos"], positions)
+        if kind == "mamba":
+            st = ssm.MambaState(*(t[j] for t in mamba_st))
+            with span("model.mamba"):
+                return ops.mamba(h, p, st, keep)
+        if kind == "cross":
+            return ops.cross(p, h, state["cross_k"][j], state["cross_v"][j])
+        return ops.ffn(p, h)
 
-        if cfg.family == "hybrid":
-            # a lane refused THIS step re-issues its token after the
-            # rebuild: its recurrent state must not advance either
-            keep = act & ~aborts
-            if cfg.layer_types:
-                x = _typed_layers(cfg, params, state, x, attn, ops, keep)
-            else:
-                x, ssm2 = _hybrid_layers(cfg, params, state, x, attn, ops,
-                                         keep)
-                if ssm2 is not None:
-                    new_state["ssm"] = _freeze_ssm(ssm2, state["ssm"], keep)
-        elif cfg.family == "encdec":
-            x = _encdec_layers(cfg, params, state, x, attn, ops)
-        else:
-            x, ring_pos = _attention_layers(cfg, params, state, x,
-                                            positions, mrope, attn, ops)
-            if ring_pos is not None:
-                new_state["ring_pos"] = ring_pos
+    for layer in _layer_plan(cfg, params):
+        for kind, norm, p, j in layer:
+            x = x + nn.residual(cfg, mix(kind, nn.norm(cfg, norm, x), p, j))
+    if "ring_pos" in state:
+        # every lane's slot takes this step's position, after all layers
+        ring_pos = state["ring_pos"].clone()
+        pos = positions[lane_slice(ring_pos, 0, positions.shape[0])]
+        ring_pos[torch.arange(pos.shape[0], device=pos.device),
+                 (pos % ring_pos.shape[1]).to(torch.int64)] = pos
+        new_state["ring_pos"] = ring_pos
 
-    x = nn.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+    x = nn.norm(cfg, params["final_norm"], x)
     logits = ops.logits(params, x)
     # inactive lanes stay frozen; aborted lanes refuse the token (pos not
     # advanced, no KV written — the caller must evict or rebuild)

@@ -201,13 +201,15 @@ def _tables(state):
             _np(state["block_table"]))
 
 
-def batcher_rank(rank, arch, shape, axes, params_np, traffic, snap_round):
+def batcher_rank(rank, arch, shape, axes, params_np, traffic, snap_round,
+                 scaled):
     """``ContinuousBatcher(rules=)`` on this rank under both rule sets,
     held every round to a one-device batcher run here on the same
     weights: page table and block table equal; then the one-device state
     after ``snap_round`` cut into this rank's pieces (``shard_state``)
-    gives one mesh step's logits (returned beside the one-device step's)
-    and, re-hashed into a 2x pool on the mesh, this rank's piece of the
+    gives one mesh step's logits (returned beside the one-device step's,
+    and again with the config keys ``scaled`` set on both sides) and,
+    re-hashed into a 2x pool on the mesh, this rank's piece of the
     one-device re-hash bit for bit."""
     mesh = M.make_mesh(shape, axes, "cpu")
     base = dataclasses.replace(get_smoke_config(arch), dtype="float32",
@@ -250,8 +252,17 @@ def batcher_rank(rank, arch, shape, axes, params_np, traffic, snap_round):
         lg, _ = step(params, EG.clone_state(mst), tok, mst["pos"])
         step1 = EG.make_serve_step(base, S_max=traffic["max_len"],
                                    page_size=traffic["page_size"])
-        lg1, _ = step1(convert.from_numpy_tree(params_np, base, "cpu"),
-                       EG.clone_state(st1), tok, st1["pos"])
+        params1 = convert.from_numpy_tree(params_np, base, "cpu")
+        lg1, _ = step1(params1, EG.clone_state(st1), tok, st1["pos"])
+        sc, sc1 = (dataclasses.replace(c, **scaled) for c in (cfg, base))
+        lg_s, _ = EG.make_serve_step(
+            sc, S_max=traffic["max_len"], rules=rules,
+            page_size=traffic["page_size"])(params, EG.clone_state(mst),
+                                            tok, mst["pos"])
+        lg1_s, _ = EG.make_serve_step(
+            sc1, S_max=traffic["max_len"],
+            page_size=traffic["page_size"])(params1, EG.clone_state(st1),
+                                            tok, st1["pos"])
         m_pages = 2 * traffic["n_pages"]
         grown = EG.rebuild_page_table(EG.clone_state(mst), n_pages=m_pages)
         grown1 = EG.rebuild_page_table(EG.clone_state(st1), n_pages=m_pages)
@@ -267,6 +278,7 @@ def batcher_rank(rank, arch, shape, axes, params_np, traffic, snap_round):
             "sampled": {r.req_id: list(r.sampled)
                         for r in srv.sched.finished},
             "summary": summary, "logits": _np(lg), "logits_one": _np(lg1),
+            "logits_scaled": _np(lg_s), "logits_one_scaled": _np(lg1_s),
             "live": _np(st1["active"] & ~st1["aborted"]),
             "rebuilt_equal": rebuilt_equal}
     return out

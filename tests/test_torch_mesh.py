@@ -266,8 +266,10 @@ def test_batcher_serves_on_a_mesh():
     completes with 0 aborts, the page table and block table equal a
     one-device run's every round, every rank samples the same tokens;
     a one-device state cut into the ranks' pieces steps to the
-    one-device logits (within ``F32_REL_TOL``) and re-hashes into
-    a 2x pool to the pieces of the one-device re-hash, bit for bit."""
+    one-device logits (within ``F32_REL_TOL``), with ``logits_scaling``
+    set on both sides too (the reference has no such key: the one-device
+    port is the oracle), and re-hashes into a 2x pool to the pieces of
+    the one-device re-hash, bit for bit."""
     import dataclasses
     arch = "qwen2.5-32b"
     cfg = dataclasses.replace(j_smoke(arch), dtype="float32")
@@ -276,7 +278,7 @@ def test_batcher_serves_on_a_mesh():
                    requests=8, prompt_len=(4, 16), max_new=(4, 20))
     outs = run_spmd(R.batcher_rank, 4,
                     (arch, (2, 2), ("data", "model"), _f32(params), traffic,
-                     3))
+                     3, {"logits_scaling": 2.0}))
     for table in ("serve_rules", "serve_manual_rules"):
         r0 = outs[0][table]
         s = r0["summary"]
@@ -284,6 +286,11 @@ def test_batcher_serves_on_a_mesh():
         live = r0["live"]
         rel = _rel([r0["logits"][live]], [r0["logits_one"][live]])
         assert rel <= F32_REL_TOL, (table, rel)
+        rel = _rel([r0["logits_scaled"][live]],
+                   [r0["logits_one_scaled"][live]])
+        assert rel <= F32_REL_TOL, (table, "logits_scaling", rel)
+        np.testing.assert_allclose(r0["logits_one_scaled"],
+                                   r0["logits_one"] / 2.0, rtol=1e-6)
         for o in outs:
             assert o[table]["sampled"] == r0["sampled"], table
             assert o[table]["rebuilt_equal"], table

@@ -116,7 +116,7 @@ def test_ssd_chunked_matches_reference(S, chunk, Hg, N, carry):
 def test_causal_conv_and_decode_step_match_reference(arch):
     """``_causal_conv`` over a sequence with a history tail, and three
     ``mamba_decode_step`` calls from a random state: outputs within ATOL,
-    the new state within H_ATOL."""
+    the new state within H_ATOL, the state passed in left as it was."""
     jp, tp = _params(arch)
     jc, tc = _cfgs(arch)
     jl = jax.tree.map(lambda a: a[0], jp["layers"]["mamba"])
@@ -140,7 +140,10 @@ def test_causal_conv_and_decode_step_match_reference(arch):
     for step in range(3):
         xin = f(B, 1, tc.d_model)
         jo, jst = j_ssm.mamba_decode_step(jl, jnp.asarray(xin), jc, jst)
-        to, tst = ssm.mamba_decode_step(tl, _t(xin), tc, tst)
+        before = [t.clone() for t in tst]
+        to, tst2 = ssm.mamba_decode_step(tl, _t(xin), tc, tst)
+        assert all(torch.equal(a, b) for a, b in zip(tst, before))
+        tst = tst2
         _close(to, jo, ATOL, f"step {step}")
         for name, a, b in zip(ssm.MambaState._fields, tst, jst):
             _close(a, b, H_ATOL, f"{name} step {step}", H_RTOL)
@@ -328,7 +331,8 @@ def test_megastep_equals_single_steps_bitwise(arch):
 def test_abort_latch_keeps_the_ssm_state():
     """zamba2: test_serving.py's abort scenario.  A megastep aborts at
     token 4 and latches; the refused token leaves every layer's mamba
-    state as it was after token 3 (``_freeze_lanes``), where a single-step
+    state as it was after token 3 (each layer's in-place update freezes
+    it), where a single-step
     driver stands when the abort shows; after ``rebuild_page_table`` the
     refused suffix re-issues and the stream equals the single-step
     driver's, which rebuilds the moment the abort shows."""
